@@ -1,0 +1,244 @@
+// Forward flash attention for Hopper (sm_90a), bound through a plain C
+// interface (ctypes) by ray_tpu_torch/ops/attention.py.
+//
+// Replaces the JAX package's TPU kernels for the forward pass:
+//   * ray_tpu/ops/attention.py `_flash_attention_bhld` / `_flash_kernel`
+//     (the in-tree Pallas kernel, public as `pallas_flash_reference`);
+//   * ray_tpu/ops/attention.py `_tpu_flash`, forward half (the Mosaic
+//     library kernel `jax.experimental.pallas.ops.tpu.flash_attention`).
+// It computes what they compute, softmax(scale * Q K^T) V with an optional
+// causal mask `row >= col`, an fp32 online softmax, and the output divided
+// by max(l, 1e-30). It differs from them where the TPU shaped them:
+//   * GQA: query head h reads kv head h / (H / Hkv); K/V are never repeated.
+//   * Layout: it reads [B, L, H, D] through strides, so no transpose copy.
+//   * Ragged L: any length; the tile edge is masked in the kernel.
+//
+// What bounds it. Causal attention at D = 128 with 4 query heads per kv
+// head does about L / 2.4 FLOPs per byte it must move, so at the card's
+// bf16 tensor-core rate it is bound by bytes up to L ~ 700 and by
+// operations past it. This first version does its products on the fp32
+// CUDA cores (67 TFLOP/s, not 989), so it is bound by operations from
+// L = 64 on, and by shared-memory reads within that.
+// Its design keeps what it can out of device memory: each K/V tile is read
+// from memory once per block of 64 query rows, converted to fp32 in shared
+// memory, and the scores never leave registers. Tensor cores (wgmma) and
+// TMA loads are later work.
+//
+// Block: 4 warps, 64 query rows (16 per warp). Each K/V tile holds 32 keys,
+// one per lane. A lane computes its key's score for each of its warp's 16
+// rows, the warp reduces the row max by shuffles, and the P.V product
+// broadcasts p by shuffles while each lane accumulates D/32 output columns
+// (d = lane + 32 e, so stores coalesce). The running sum l is kept per lane
+// and reduced once at the end.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kRowsPerWarp = 16;
+constexpr int kBlockQ = kWarps * kRowsPerWarp;
+constexpr int kBlockK = 32;
+constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+struct Strides {
+  long long b, l, h;  // in elements; the D axis has stride 1
+};
+
+template <int D>
+constexpr int smem_floats() {
+  return kBlockQ * D + kBlockK * (D + 1) + kBlockK * D;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int Lq, int Lk,
+                 int group, Strides qs, Strides ks, Strides vs, Strides os,
+                 float scale, int causal) {
+  constexpr int E = D / 32;  // output columns per lane
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                    // [kBlockQ][D], pre-scaled
+  float* Ks = Qs + kBlockQ * D;        // [kBlockK][D + 1], padded: no bank
+  float* Vs = Ks + kBlockK * (D + 1);  // [kBlockK][D]       conflicts
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * kBlockQ;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
+
+  for (int i = tid; i < kBlockQ * D; i += kWarps * 32) {
+    const int r = i / D, d = i % D, row = q0 + r;
+    Qs[i] = row < Lq ? to_f32(qb[row * qs.l + d]) * scale : 0.f;
+  }
+
+  float acc[kRowsPerWarp][E];
+  float m[kRowsPerWarp], l[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+  }
+
+  const int row0 = q0 + warp * kRowsPerWarp;
+  const float* Qw = Qs + warp * kRowsPerWarp * D;
+  // Causal: stop at the tile that holds the block's last row.
+  const int kv_end = causal ? min(Lk, q0 + kBlockQ) : Lk;
+
+  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
+    __syncthreads();  // Qs is written; the previous tile is consumed
+    for (int i = tid; i < kBlockK * D; i += kWarps * 32) {
+      const int j = i / D, d = i % D, col = k0 + j;
+      const bool in = col < Lk;
+      Ks[j * (D + 1) + d] = in ? to_f32(kb[col * ks.l + d]) : 0.f;
+      Vs[j * D + d] = in ? to_f32(vb[col * vs.l + d]) : 0.f;
+    }
+    __syncthreads();
+    // A tile wholly above this warp's rows adds nothing.
+    if (causal && k0 > row0 + kRowsPerWarp - 1) continue;
+
+    float s[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
+    const float* kr = Ks + lane * (D + 1);
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      const float k0v = kr[d], k1v = kr[d + 1], k2v = kr[d + 2],
+                  k3v = kr[d + 3];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(Qw + r * D + d);
+        s[r] = fmaf(qv.x, k0v, s[r]);
+        s[r] = fmaf(qv.y, k1v, s[r]);
+        s[r] = fmaf(qv.z, k2v, s[r]);
+        s[r] = fmaf(qv.w, k3v, s[r]);
+      }
+    }
+
+    const int col = k0 + lane;
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const bool visible = col < Lk && (!causal || row0 + r >= col);
+      const float sr = visible ? s[r] : kNegInf;
+      float mt = sr;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, off));
+      const float m_new = fmaxf(m[r], mt);
+      const float alpha = expf(m[r] - m_new);
+      const float p = visible ? expf(sr - m_new) : 0.f;
+      m[r] = m_new;
+      l[r] = l[r] * alpha + p;
+      s[r] = p;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[r][e] *= alpha;
+    }
+
+#pragma unroll 4
+    for (int j = 0; j < kBlockK; ++j) {
+      float vv[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) vv[e] = Vs[j * D + lane + 32 * e];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float p = __shfl_sync(kFull, s[r], j);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(p, vv[e], acc[r][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    float lr = l[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      lr += __shfl_xor_sync(kFull, lr, off);
+    const int row = row0 + r;
+    if (row < Lq) {
+      const float denom = fmaxf(lr, 1e-30f);
+      T* out = o + b * os.b + row * os.l + h * os.h;
+#pragma unroll
+      for (int e = 0; e < E; ++e) store(out + lane + 32 * e, acc[r][e] / denom);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Lq, int Lk, int H, int Hkv, const long long* st, float scale,
+           int causal, cudaStream_t stream) {
+  const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
+  // Above 48 KB of shared memory needs an opt-in, once per instantiation
+  // and device (setting it again from a racing thread is harmless).
+  constexpr int kMaxDevices = 64;
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices || !smem_set[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) smem_set[dev] = true;
+  }
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
+  const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
+  flash_fwd_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, H / Hkv, qs, ks,
+      vs, os, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Returns 0 on success, a cudaError_t value if the launch failed, and a
+// negative code for arguments the kernel does not take: -1 dtype, -2 head
+// dim, -3 shapes. dtype: 0 = float32, 1 = bfloat16. strides: 12 values,
+// (batch, seq, head) for q, k, v and o in that order, in elements.
+extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
+                             void* o, int dtype, int B, int Lq, int Lk, int H,
+                             int Hkv, int D, const long long* strides,
+                             float scale, int causal, void* stream) {
+  if (B < 1 || Lq < 1 || Lk < 1 || Hkv < 1 || H % Hkv != 0 ||
+      (causal && Lq != Lk) || B > 65535 || H > 65535)
+    return -3;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (D == 64)
+      return launch<float, 64>(q, k, v, o, B, Lq, Lk, H, Hkv, strides, scale,
+                               causal, s);
+    if (D == 128)
+      return launch<float, 128>(q, k, v, o, B, Lq, Lk, H, Hkv, strides, scale,
+                                causal, s);
+    return -2;
+  }
+  if (dtype == 1) {
+    if (D == 64)
+      return launch<__nv_bfloat16, 64>(q, k, v, o, B, Lq, Lk, H, Hkv, strides,
+                                       scale, causal, s);
+    if (D == 128)
+      return launch<__nv_bfloat16, 128>(q, k, v, o, B, Lq, Lk, H, Hkv,
+                                        strides, scale, causal, s);
+    return -2;
+  }
+  return -1;
+}

@@ -1,0 +1,277 @@
+"""Llama-family transformer over a plain parameter dict.
+
+Port of ``ray_tpu/models/llama.py``: the same parameter tree, names and
+``[in, out]`` weight layout, so a JAX tree converts as it is
+(``models/convert.py``). The loss, chunked vocab and remat belong to the
+training slice and are not here.
+
+KV caches are per-layer ``(k, v)`` tensors ``[B, total, Hkv, D]`` that
+``_decode_step`` writes in place (JAX returns new arrays); the write-back
+copy is what in-place saves.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from .._device import resolve_device
+from ..ops.attention import NEG_INF, flash_attention
+from ..ops.layers import apply_rope, rms_norm, rope_frequencies
+from ..ops.quant import mm
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    d_ff: int = 14336
+    max_seq_len: int = 8192
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def param_count(self) -> int:
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        h = self.head_dim
+        per_layer = (d * self.n_heads * h + 2 * d * self.n_kv_heads * h
+                     + self.n_heads * h * d + 3 * d * f + 2 * d)
+        total = v * d + self.n_layers * per_layer + d
+        if not self.tie_embeddings:
+            total += d * v
+        return total
+
+
+# Model-card configs (the published Llama-3 family shapes).
+LLAMA3_8B = LlamaConfig()
+LLAMA3_1B = LlamaConfig(d_model=2048, n_layers=16, n_heads=32, n_kv_heads=8,
+                        d_ff=8192, vocab_size=128256)
+LLAMA_DEBUG = LlamaConfig(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                          n_kv_heads=2, d_ff=128, max_seq_len=256,
+                          dtype=torch.float32)
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                device=None) -> Dict[str, Any]:
+    """Random weights in the JAX package's tree and layout.
+
+    Each weight is drawn in fp32 on the device and cast to ``cfg.dtype``
+    once, so the 8B init takes seconds and its peak temporary is one fp32
+    embedding (~2.1 GB). ``generator`` must live on ``device``. The values
+    are not JAX's ``jax.random`` bits; parity with the JAX package runs
+    through ``models/convert.py``."""
+    device = resolve_device(device)
+
+    def dense(shape, scale=None):
+        if scale is None:
+            scale = 1.0 / math.sqrt(shape[-2] if len(shape) > 1 else shape[0])
+        t = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return t.mul_(scale).to(cfg.dtype)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=cfg.dtype, device=device)
+
+    d, hd = cfg.d_model, cfg.head_dim
+    params: Dict[str, Any] = {
+        "embedding": dense((cfg.vocab_size, d), 1.0),
+        "norm": zeros(d),
+        "layers": [],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((d, cfg.vocab_size))
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "wq": dense((d, cfg.n_heads * hd)),
+            "wk": dense((d, cfg.n_kv_heads * hd)),
+            "wv": dense((d, cfg.n_kv_heads * hd)),
+            "wo": dense((cfg.n_heads * hd, d)),
+            "w_gate": dense((d, cfg.d_ff)),
+            "w_up": dense((d, cfg.d_ff)),
+            "w_down": dense((cfg.d_ff, d)),
+            "attn_norm": zeros(d),
+            "mlp_norm": zeros(d),
+        })
+    return params
+
+
+def _cache_attention(q, k_all, v_all, pos, cfg: LlamaConfig):
+    """Masked attention of the new rows over the whole cache, with JAX's
+    type placement: fp32 scores, ``-1e30`` mask, p cast to the cache dtype
+    before the PV product. q: [B, L, H, D]; pos: [B, L] absolute positions
+    (a key is visible when its index <= the query's position)."""
+    B, L = q.shape[:2]
+    Hkv, D = cfg.n_kv_heads, cfg.head_dim
+    G = cfg.n_heads // Hkv
+    total = k_all.shape[1]
+    qg = q.float().reshape(B, L, Hkv, G, D)
+    s = torch.einsum("blkgd,btkd->bkglt", qg, k_all.float())
+    s = s * (D ** -0.5)
+    visible = torch.arange(total, device=q.device)[None, None, :] <= \
+        pos[:, :, None]                                        # [B, L, T]
+    s = torch.where(visible[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkglt,btkd->blkgd", p.to(v_all.dtype), v_all)
+    return o.reshape(B, L, cfg.n_heads, D)
+
+
+def _attention_block(layer, x, cos, sin, cfg: LlamaConfig, kv_cache=None,
+                     positions=None):
+    """Attention sublayer. ``kv_cache=(k_all, v_all, start)`` writes the new
+    K/V in place at ``start`` (an int, or a [B] tensor of per-row offsets)
+    and returns ``(out, (k_all, v_all, start + L))``."""
+    B, L, _ = x.shape
+    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    q = mm(h, layer["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
+    k = mm(h, layer["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    v = mm(h, layer["wv"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, cos, sin, positions)
+    k = apply_rope(k, cos, sin, positions)
+    new_cache = None
+    if kv_cache is not None:
+        k_all, v_all, start = kv_cache
+        k = k.to(k_all.dtype)
+        v = v.to(v_all.dtype)
+        if isinstance(start, int):
+            k_all[:, start:start + L] = k
+            v_all[:, start:start + L] = v
+            pos = (start + torch.arange(L, device=x.device))[None, :] \
+                .expand(B, L)
+        else:
+            pos = start[:, None] + torch.arange(L, device=x.device)[None, :]
+            rows = torch.arange(B, device=x.device)[:, None]
+            k_all[rows, pos] = k
+            v_all[rows, pos] = v
+        new_cache = (k_all, v_all, start + L)
+        if isinstance(start, int) and start == 0 and L > 1:
+            # A fresh prompt: the keys past it are masked and the keys
+            # before it do not exist, so the cache branch is exactly
+            # causal attention over the new rows.
+            o = flash_attention(q, k, v, causal=True)
+        else:
+            o = _cache_attention(q, k_all, v_all, pos, cfg)
+    else:
+        o = flash_attention(q, k, v, causal=True)
+    o = o.reshape(B, L, cfg.n_heads * cfg.head_dim)
+    return mm(o, layer["wo"]), new_cache
+
+
+def _mlp_block(layer, x, cfg: LlamaConfig):
+    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    g = mm(h, layer["w_gate"])
+    u = mm(h, layer["w_up"])
+    return mm(F.silu(g) * u, layer["w_down"])
+
+
+def _head(params, cfg: LlamaConfig):
+    return params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+@torch.no_grad()
+def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
+                   cfg: LlamaConfig) -> torch.Tensor:
+    """Final-norm hidden states [B, L, D] (no lm_head projection)."""
+    cos, sin = rope_frequencies(cfg.head_dim, tokens.shape[1],
+                                cfg.rope_theta, device=tokens.device)
+    x = params["embedding"][tokens.long()].to(cfg.dtype)
+    for layer in params["layers"]:
+        a, _ = _attention_block(layer, x, cos, sin, cfg)
+        x = x + a
+        x = x + _mlp_block(layer, x, cfg)
+    return rms_norm(x, params["norm"], cfg.norm_eps)
+
+
+@torch.no_grad()
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig
+            ) -> torch.Tensor:
+    """Logits for a token batch. tokens: [B, L] int -> [B, L, V]."""
+    x = forward_hidden(params, tokens, cfg)
+    return mm(x, _head(params, cfg))
+
+
+@torch.no_grad()
+def _decode_step(params, tokens, caches, start: Union[int, torch.Tensor],
+                 cfg: LlamaConfig, cos, sin) -> Tuple[torch.Tensor, List[tuple]]:
+    """One cached forward over ``tokens`` [B, L] beginning at ``start``
+    (an int, or a [B] tensor of per-row positions). ``caches`` are
+    per-layer ``(k, v)`` written in place; returns ``(logits, caches)``."""
+    B, L = tokens.shape
+    x = params["embedding"][tokens.long()].to(cfg.dtype)
+    if isinstance(start, int):
+        positions = (start + torch.arange(L, device=tokens.device))[None, :] \
+            .expand(B, L)
+    else:
+        positions = start[:, None] + torch.arange(L, device=tokens.device)
+    new_caches = []
+    for layer, (kc, vc) in zip(params["layers"], caches):
+        a, nc = _attention_block(layer, x, cos, sin, cfg,
+                                 kv_cache=(kc, vc, start),
+                                 positions=positions)
+        x = x + a
+        x = x + _mlp_block(layer, x, cfg)
+        new_caches.append((nc[0], nc[1]))
+    x = rms_norm(x, params["norm"], cfg.norm_eps)
+    return mm(x, _head(params, cfg)), new_caches
+
+
+def new_caches(cfg: LlamaConfig, batch: int, total: int, device
+               ) -> List[tuple]:
+    """Zeroed per-layer KV caches [batch, total, Hkv, D] in ``cfg.dtype``."""
+    shape = (batch, total, cfg.n_kv_heads, cfg.head_dim)
+    return [(torch.zeros(shape, dtype=cfg.dtype, device=device),
+             torch.zeros(shape, dtype=cfg.dtype, device=device))
+            for _ in range(cfg.n_layers)]
+
+
+def _prefill(params, prompt, cfg: LlamaConfig, max_new: int):
+    B, L = prompt.shape
+    total = L + max_new
+    caches = new_caches(cfg, B, total, prompt.device)
+    cos, sin = rope_frequencies(cfg.head_dim, total, cfg.rope_theta,
+                                device=prompt.device)
+    logits, caches = _decode_step(params, prompt, caches, 0, cfg, cos, sin)
+    return logits, caches, L, cos, sin
+
+
+@torch.no_grad()
+def _generate(params, prompt, cfg: LlamaConfig, max_new: int, pick):
+    logits, caches, L, cos, sin = _prefill(params, prompt, cfg, max_new)
+    tok = pick(logits[:, -1])
+    out = [tok]
+    for pos in range(L, L + max_new - 1):
+        logits, caches = _decode_step(params, tok[:, None], caches, pos, cfg,
+                                      cos, sin)
+        tok = pick(logits[:, -1])
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def generate_greedy(params, prompt: torch.Tensor, cfg: LlamaConfig,
+                    max_new: int = 32) -> torch.Tensor:
+    """KV-cached greedy decode: prompt [B, L] -> tokens [B, max_new]."""
+    return _generate(params, prompt, cfg, max_new,
+                     lambda logits: logits.argmax(dim=-1))
+
+
+def generate_sample(params, prompt: torch.Tensor, cfg: LlamaConfig,
+                    generator: torch.Generator, max_new: int = 32,
+                    temperature: float = 1.0) -> torch.Tensor:
+    """KV-cached sampled decode with temperature; draws from
+    ``generator`` (which lives on the prompt's device)."""
+    def pick(logits):
+        probs = torch.softmax(logits.float() / max(temperature, 1e-6), -1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    return _generate(params, prompt, cfg, max_new, pick)

@@ -1,0 +1,292 @@
+"""Parity of the PyTorch port's ops (ray_tpu_torch.ops) with the JAX
+package's, on the CPU in fp32.
+
+The same numpy inputs, made from a seed, go through both packages. The
+port's flash attention runs its plain blockwise version here (a CPU
+tensor); the JAX kernel runs in Pallas interpret mode. Tolerances are
+atol = rtol = 1e-5: both sides compute in fp32 and differ only in the
+order of their sums.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import attention as jattn
+from ray_tpu.ops import layers as jlayers
+from ray_tpu.ops import quant as jquant
+from ray_tpu_torch.ops import attention as tattn
+from ray_tpu_torch.ops import layers as tlayers
+from ray_tpu_torch.ops import quant as tquant
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+REPO = Path(__file__).resolve().parent.parent
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Keep torch's CPU thread pool small: the suite runs files in
+    parallel workers, beside timing-sensitive tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+def _randn(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _close(t, j, **tol):
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), **(tol or TOL))
+
+
+# ------------------------------------------------------------- layers
+
+def test_rms_norm_matches_jax():
+    rng = np.random.default_rng(0)
+    x, scale = _randn(rng, 2, 5, 64), _randn(rng, 64) * 0.1
+    _close(tlayers.rms_norm(torch.from_numpy(x), torch.from_numpy(scale)),
+           jlayers.rms_norm(jnp.asarray(x), jnp.asarray(scale)))
+
+
+def test_rope_tables_and_application_match_jax():
+    rng = np.random.default_rng(1)
+    tc, ts = tlayers.rope_frequencies(32, 64, 10000.0)
+    jc, js = jlayers.rope_frequencies(32, 64, 10000.0)
+    _close(tc, jc)
+    _close(ts, js)
+    x = _randn(rng, 2, 8, 3, 32)
+    pos = rng.integers(0, 64, size=(2, 8))
+    _close(tlayers.apply_rope(torch.from_numpy(x), tc, ts),
+           jlayers.apply_rope(jnp.asarray(x), jc, js))
+    _close(tlayers.apply_rope(torch.from_numpy(x), tc, ts,
+                              torch.from_numpy(pos)),
+           jlayers.apply_rope(jnp.asarray(x), jc, js, jnp.asarray(pos)))
+
+
+def test_swiglu_matches_jax():
+    rng = np.random.default_rng(2)
+    x = _randn(rng, 4, 16)
+    wg, wu, wd = _randn(rng, 16, 32), _randn(rng, 16, 32), _randn(rng, 32, 16)
+    _close(tlayers.swiglu(*map(torch.from_numpy, (x, wg, wu, wd))),
+           jlayers.swiglu(*map(jnp.asarray, (x, wg, wu, wd))))
+
+
+@pytest.mark.parametrize("z_loss", [0.0, 1e-3])
+def test_cross_entropy_matches_jax(z_loss):
+    rng = np.random.default_rng(3)
+    logits = _randn(rng, 3, 7, 50) * 3
+    labels = rng.integers(0, 50, size=(3, 7))
+    labels[0, :2] = -100
+    tl, tn = tlayers.cross_entropy_loss(torch.from_numpy(logits),
+                                        torch.from_numpy(labels),
+                                        z_loss=z_loss)
+    jl, jn = jlayers.cross_entropy_loss(jnp.asarray(logits),
+                                        jnp.asarray(labels), z_loss=z_loss)
+    _close(tl, jl)
+    assert float(tn) == float(jn) == 19.0
+
+
+# -------------------------------------------------------------- quant
+
+def test_quantize_array_and_mm_match_jax():
+    rng = np.random.default_rng(4)
+    w = _randn(rng, 32, 24)
+    w[:, 3] = 0.0  # an all-zero channel takes scale 1
+    tq = tquant.quantize_array(torch.from_numpy(w))
+    jq = jquant.quantize_array(jnp.asarray(w))
+    np.testing.assert_array_equal(tq.w.numpy(), np.asarray(jq.w))
+    _close(tq.s, jq.s)
+    x = _randn(rng, 5, 32)
+    _close(tquant.mm(torch.from_numpy(x), tq), jquant.mm(jnp.asarray(x), jq))
+    _close(tquant.mm(torch.from_numpy(x), torch.from_numpy(w)),
+           jquant.mm(jnp.asarray(x), jnp.asarray(w)))
+
+
+def test_quantize_params_and_nbytes_match_jax():
+    rng = np.random.default_rng(5)
+    layer = {k: _randn(rng, 16, 16) for k in
+             ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")}
+    layer["attn_norm"] = _randn(rng, 16)
+    tree = {"embedding": _randn(rng, 40, 16), "lm_head": _randn(rng, 16, 40),
+            "norm": _randn(rng, 16), "layers": [layer, dict(layer)]}
+    jtree = {"embedding": jnp.asarray(tree["embedding"]),
+             "lm_head": jnp.asarray(tree["lm_head"]),
+             "norm": jnp.asarray(tree["norm"]),
+             "layers": [{k: jnp.asarray(v) for k, v in lay.items()}
+                        for lay in tree["layers"]]}
+    ttree = {"embedding": torch.from_numpy(tree["embedding"]),
+             "lm_head": torch.from_numpy(tree["lm_head"]),
+             "norm": torch.from_numpy(tree["norm"]),
+             "layers": [{k: torch.from_numpy(v) for k, v in lay.items()}
+                        for lay in tree["layers"]]}
+    tqp, jqp = tquant.quantize_params(ttree), jquant.quantize_params(jtree)
+    assert isinstance(tqp["lm_head"], tquant.Q8)
+    assert isinstance(tqp["layers"][1]["w_down"], tquant.Q8)
+    assert not isinstance(tqp["layers"][0]["attn_norm"], tquant.Q8)
+    np.testing.assert_array_equal(tqp["layers"][1]["wq"].w.numpy(),
+                                  np.asarray(jqp["layers"][1]["wq"].w))
+    assert tquant.quantized_nbytes(tqp) == jquant.quantized_nbytes(jqp)
+    assert tquant.quantized_nbytes(ttree) == jquant.quantized_nbytes(jtree)
+
+
+# ---------------------------------------------------------- attention
+
+B, L, H, D = 1, 256, 2, 64
+
+
+def _qkv(seed, b=B, lq=L, lk=L, h=H, hkv=H, d=D):
+    rng = np.random.default_rng(seed)
+    return _randn(rng, b, lq, h, d), _randn(rng, b, lk, hkv, d), \
+        _randn(rng, b, lk, hkv, d)
+
+
+@pytest.mark.parametrize("block_q,block_k", [(64, 64), (128, 128),
+                                             (256, 256), (64, 128),
+                                             (128, 64), (256, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_flash_matches_pallas_kernel(block_q, block_k, causal):
+    q, k, v = _qkv(0)
+    want = jattn.pallas_flash_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=block_q, block_k=block_k, interpret=True)
+    got = tattn.flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, block_q=block_q, block_k=block_k)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("lq,hkv,causal", [
+    (200, 2, True),     # ragged L: no block size divides it
+    (77, 2, False),
+    (256, 1, True),     # GQA, 2 query heads per kv head
+    (130, 1, False),    # GQA, ragged, full attention
+])
+def test_flash_matches_dense_oracle(lq, hkv, causal):
+    q, k, v = _qkv(1, lq=lq, lk=lq, hkv=hkv)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    want = jattn.dense_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal)
+    _close(tattn.flash_attention(tq, tk, tv, causal=causal), want)
+    _close(tattn.dense_attention(tq, tk, tv, causal=causal), want)
+
+
+def test_dense_oracle_offsets_and_segments_match_jax():
+    q, k, v = _qkv(2, lq=24, lk=40, hkv=1)
+    seg = np.repeat(np.arange(3), 8)[None]
+    want = jattn.dense_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=True)
+    _close(tattn.dense_attention(*map(torch.from_numpy, (q, k, v)),
+                                 causal=True), want)
+    q2, k2, v2 = _qkv(3, lq=24, lk=24)
+    want = jattn.dense_attention(jnp.asarray(q2), jnp.asarray(k2),
+                                 jnp.asarray(v2), causal=True,
+                                 segment_ids=jnp.asarray(seg))
+    got = tattn.flash_attention(*map(torch.from_numpy, (q2, k2, v2)),
+                                causal=True,
+                                segment_ids=torch.from_numpy(seg))
+    _close(got, want)
+
+
+def test_plain_flash_rejects_causal_with_unequal_lengths():
+    q, k, v = _qkv(4, lq=8, lk=16)
+    with pytest.raises(ValueError, match="Lq == Lk"):
+        tattn.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+
+
+def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
+    monkeypatch.setattr(tattn, "launches", 0)
+    monkeypatch.setattr(tattn, "_load", lambda: pytest.fail("kernel load"))
+    q, k, v = _qkv(5, lq=16, lk=16)
+    tattn.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+    assert tattn.launches == 0
+
+
+# -------------------------------------------------- package boundaries
+
+_FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "ray_tpu")
+
+
+def _port_sources():
+    files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in _FORBIDDEN)
+
+
+def test_port_sources_import_no_jax_and_no_ray_tpu():
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            elif isinstance(node, ast.Call) and getattr(
+                    node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                    isinstance(node.args[0], ast.Constant):
+                names = [str(node.args[0].value)]
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names if _forbidden(n)]
+    assert len(_port_sources()) > 10
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch, ray_tpu_torch.ops, ray_tpu_torch.models\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.util.events\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{_FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_event_buffer_is_bounded_and_drains(monkeypatch):
+    from ray_tpu_torch.util import events
+
+    events.reset()
+    monkeypatch.setattr(events, "_CAP", 2)
+    for i in range(3):
+        events.emit("serve.req.queue", plane="serve", rid=str(i))
+    events.emit("serve.req.first_token", plane="serve", dur=0.5)
+    rows, dropped = events.drain()
+    assert [r[1] for r in rows] == ["serve.req.queue"] * 2
+    assert rows[0][6] == {"rid": "0"}
+    assert dropped == {"serve": 2}
+    assert events.drain() == ([], {})
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from ray_tpu_torch.models import (LLAMA_DEBUG, GenerationEngine,
+                                      init_params, params_from_numpy)
+    from ray_tpu_torch.serve import LLMServer
+
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(LLAMA_DEBUG, g)
+    params = init_params(LLAMA_DEBUG, g, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GenerationEngine(params, LLAMA_DEBUG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMServer(lambda: (params, LLAMA_DEBUG))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy({"norm": np.zeros(4, np.float32)})
