@@ -5,21 +5,40 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the exit code is then not 0):
-  1. the card's name and power limit; the flash kernel's build from
-     ray_tpu_torch/csrc/flash_fwd.cu and what ptxas reported;
-  2. the kernel against its plain PyTorch version on the same bf16 inputs
-     at the serving shapes, with its time, the plain version's, that of
-     torch's scaled_dot_product_attention (a yardstick only; the port never
-     calls it) and the least time the card could take;
+  1. the card's name and power limit; both kernel libraries, built at once
+     from ray_tpu_torch/csrc/flash_fwd.cu and flash_bwd.cu, and what ptxas
+     reported;
+  2. the forward kernel against its plain PyTorch version on the same bf16
+     inputs at the serving shapes (the output and the rows' log-sum-exp),
+     with its time, the plain version's, that of torch's
+     scaled_dot_product_attention (a yardstick only; the port never calls
+     it) and the least time the card could take;
   3. a small fp32 model on the card: logits through the kernel against the
      plain path on the CPU, and engine tokens against generate_greedy;
-  4. the main path at Llama-3-8B full width and depth with random weights:
-     forward over [1, 1024] tokens, then an LLMServer answering six
-     concurrent requests (one streamed) that hit every prefill bucket.
-     The kernel's launch count is reset just before and read just after,
-     and must equal n_layers x (forwards + prefills);
-  5. where the time goes: the warm forward time and a torch.profiler
-     window over decode steps with every slot busy.
+  4. the serving main path at Llama-3-8B full width and depth with random
+     weights: forward over [1, 1024] tokens, then an LLMServer answering
+     six concurrent requests (one streamed) that hit every prefill bucket.
+     The forward kernel's launch count is reset just before and read just
+     after, and must equal n_layers x (forwards + prefills);
+  5. where the serving time goes: the warm forward time and a
+     torch.profiler window over decode steps with every slot busy.
+     The 8B weights and the server are freed after it;
+  6. the backward kernels (dK/dV and dQ) against their plain version on
+     the same bf16 inputs at the training shape, D = 128, a ragged L and a
+     full mask, and once in fp32, with each kernel's time, the whole
+     backward's, the plain version's, that of scaled_dot_product_attention's
+     backward (a yardstick only) and the bounds;
+  7. a small fp32 model trained on the card: the loss and every gradient
+     through the kernels against the plain path on the CPU, dense and with
+     remat and chunked vocab, then 3 AdamW steps against the same steps on
+     the CPU;
+  8. the training main path: Llama-3.2-1B (LLAMA3_1B) at full width and
+     depth, bf16, random weights, tokens [4, 2048], AdamW(3e-4, weight
+     decay 0.1), the same tokens every step: dense loss without remat (1
+     warm-up and 5 timed steps), then remat with the chunked-vocab loss
+     (3 steps) from the same weights. Both launch counts are reset just
+     before each run and read just after; the run prints step time,
+     tokens/s, MFU, peak memory and a torch.profiler breakdown of a step.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -27,11 +46,13 @@ card's name and power limit again, and the device record.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -44,6 +65,18 @@ H100_BF16_FLOPS = 989e12       # dense bf16 tensor-core peak
 BF16_ATOL = 4e-3
 BF16_RTOL = 1.6e-2
 FP32_TOL = 1e-4
+# The rows' log-sum-exp is fp32 (values of 5 to 10) from the same inputs on
+# both sides, summed in another order.
+LSE_TOL = 1e-4
+# A gradient element is held to |got - want| <= A * max|want| + R * |want|.
+# bf16: both sides sum in fp32 from the same bf16 inputs and round once to
+# bf16, so they may differ by two rounding steps (R); near zero the fp32
+# sums over up to 4 x 2048 terms in another order leave an error that
+# scales with the gradient tensor's magnitude, not the element's (A).
+BF16_GRAD_RULE = (1e-3, BF16_RTOL)
+# fp32: only the order of the sums differs.
+FP32_GRAD_RULE = (1e-4, 1e-3)
+LR = 3e-4
 
 
 def log(*parts):
@@ -63,16 +96,96 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, flops: float):
+    """Least time in ms for work that moves ``nbytes`` at the card's memory
+    rate and does ``flops`` at its bf16 peak; the larger one bounds."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def attention_bound(B, L, H, Hkv, D, causal, itemsize=2):
     """Least time for the attention: q, k, v read once and o written once
     at the card's memory rate, against the products this mask needs at
     its bf16 peak; the larger one bounds."""
     nbytes = itemsize * (2 * B * L * H * D + 2 * B * L * Hkv * D)
     pairs = L * (L + 1) // 2 if causal else L * L
-    flops = 4 * B * H * D * pairs
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound(nbytes, 4 * B * H * D * pairs)
+
+
+def bwd_bounds(B, L, H, Hkv, D, causal, itemsize=2):
+    """Bounds of the whole backward and of each kernel. Per visible (query,
+    key) pair and head, each product of the forward's size does 2 D
+    operations: the backward needs five (S, dP, dV, dK, dQ), the dK/dV
+    kernel's function four (S, dP, dV, dK), the dQ kernel's three
+    (S, dP, dQ). Bytes: each tensor the function reads or writes, once;
+    the rows' lse and di are fp32 [B, H, L]."""
+    pairs = L * (L + 1) // 2 if causal else L * L
+    per_product = 2 * B * H * D * pairs
+    q_like, kv_like, stat = B * L * H * D, B * L * Hkv * D, 4 * B * H * L
+    whole = bound(itemsize * (4 * q_like + 4 * kv_like) + stat,
+                  5 * per_product)       # q o dO dq; k v dk dv; lse
+    dkdv = bound(itemsize * (2 * q_like + 4 * kv_like) + 2 * stat,
+                 4 * per_product)        # q dO; k v dk dv; lse di
+    dq = bound(itemsize * (3 * q_like + 2 * kv_like) + 2 * stat,
+               3 * per_product)          # q dO dq; k v; lse di
+    return whole, dkdv, dq
+
+
+def hold(got, want, atol, rtol, what):
+    """Hold each element to |got - want| <= atol + rtol * |want|; returns
+    the max abs error and the worst element's share of its limit."""
+    diff = (got.float() - want.float()).abs()
+    share = float((diff / (atol + rtol * want.float().abs())).max())
+    err = float(diff.max())
+    if not share <= 1.0:
+        raise AssertionError(f"{what}: max_abs_err {err}, {share} of the "
+                             f"limit")
+    return err, share
+
+
+def hold_grad(got, want, rule, what):
+    """A gradient against its reference by ``rule`` = (A, R): each element
+    within A * max|want| + R * |want|."""
+    a, r = rule
+    return hold(got, want, a * float(want.float().abs().max()), r, what)
+
+
+def device_profile(fn, reps: int):
+    """Run ``fn`` ``reps`` times under torch.profiler; returns the device
+    time per rep in ms and the kernels as (ms per rep, calls per rep, name),
+    longest first. Ranges that code annotates on the device's timeline
+    (``Optimizer.step#AdamW.step``) cover kernels listed on their own and
+    are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total / reps / 1e3,
+                       e.count / reps, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     reverse=True)
+    return sum(k[0] for k in kernels), kernels
+
+
+def kernel_ms(kernels, name: str) -> float:
+    """Device ms per rep of the kernel whose name contains ``name``."""
+    found = [t for t, _, key in kernels if name in key]
+    if len(found) != 1:
+        raise AssertionError(f"profiler shows {len(found)} kernels named "
+                             f"{name}")
+    return found[0]
+
+
+def log_top(kernels, n=10):
+    for t, calls, name in kernels[:n]:
+        log(f"  {t} ms/step in {calls} calls: {name[:100]}")
 
 
 def card_line() -> str:
@@ -99,17 +212,16 @@ def check_kernel(attention, gen):
         k = torch.randn(B, L, Hkv, D, generator=gen, device="cuda").bfloat16()
         v = torch.randn(B, L, Hkv, D, generator=gen, device="cuda").bfloat16()
         got = attention.flash_attention(q, k, v, causal=causal)
-        want = attention.flash_attention_plain(q, k, v, causal=causal)
+        got_o, got_lse = attention.flash_attention_fwd(q, k, v, causal)
+        want, want_lse = attention.flash_attention_plain(
+            q, k, v, causal=causal, return_lse=True)
         torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
+        where = f"flash_fwd at B={B} L={L} D={D} causal={causal}"
         # worst share of the per-element limit; above 1 fails
-        worst = float((diff / (BF16_ATOL + BF16_RTOL * want.float().abs()))
-                      .max())
-        if not worst <= 1.0:
-            raise AssertionError(f"flash kernel disagrees at B={B} L={L} "
-                                 f"D={D} causal={causal}: max_abs_err "
-                                 f"{err}, {worst} of the limit")
+        err, worst = hold(got, want, BF16_ATOL, BF16_RTOL, where)
+        lse_err, _ = hold(got_lse, want_lse, LSE_TOL, 0.0, where + " lse")
+        if not torch.equal(got_o, got):
+            raise AssertionError(f"{where}: writing lse changed o")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = time_ms(lambda: attention.flash_attention(q, k, v, causal),
                      20)
@@ -120,22 +232,31 @@ def check_kernel(attention, gen):
         bound_ms, bound_by = attention_bound(B, L, H, Hkv, D, causal)
         row = dict(B=B, L=L, H=H, Hkv=Hkv, D=D, causal=causal,
                    max_abs_err=err, share_of_limit=worst, atol=BF16_ATOL,
-                   rtol=BF16_RTOL, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+                   rtol=BF16_RTOL, lse_max_abs_err=lse_err, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
         rows.append(row)
         log("kernel_check", json.dumps(row))
     # fp32 inputs take the same kernel in its fp32 instantiation.
     q, k, v = (torch.randn(1, 200, 4, 64, generator=gen, device="cuda")
                for _ in range(3))
-    err = float((attention.flash_attention(q, k[:, :, :2], v[:, :, :2], True)
-                 - attention.flash_attention_plain(q, k[:, :, :2],
-                                                   v[:, :, :2], True))
-                .abs().max())
-    if not err <= FP32_TOL:
-        raise AssertionError(f"fp32 flash kernel disagrees: {err}")
+    k, v = k[:, :, :2], v[:, :, :2]
+    err, _ = hold(attention.flash_attention(q, k, v, True),
+                  attention.flash_attention_plain(q, k, v, True),
+                  FP32_TOL, 0.0, "fp32 flash kernel")
     log(f"kernel_check fp32 L=200 D=64 GQA: max_abs_err={err} "
         f"tol={FP32_TOL}")
     return rows
+
+
+def _host_copy(params):
+    """A copy of a parameter tree on the CPU, sharing no storage."""
+    def copy(t):
+        return t.detach().to("cpu", copy=True)
+
+    return {k: (copy(v) if torch.is_tensor(v) else
+                [{n: copy(t) for n, t in lay.items()} for lay in v])
+            for k, v in params.items()}
 
 
 def check_small_model(models, gen):
@@ -144,9 +265,7 @@ def check_small_model(models, gen):
                              n_heads=4, n_kv_heads=2, d_ff=512,
                              dtype=torch.float32)
     params = models.init_params(cfg, gen, device="cuda")
-    cpu_params = {k: (v.cpu() if torch.is_tensor(v) else
-                      [{n: t.cpu() for n, t in lay.items()} for lay in v])
-                  for k, v in params.items()}
+    cpu_params = _host_copy(params)
     tokens = torch.randint(0, 512, (2, 100), generator=gen, device="cuda")
     got = models.forward(params, tokens, cfg)
     want = models.forward(cpu_params, tokens.cpu(), cfg)
@@ -172,10 +291,8 @@ def check_small_model(models, gen):
 def where_time_goes(models, params, cfg, server, tokens):
     """After the main path: the warm forward time, and a profile of decode
     steps with every slot busy (kernel time by name, device busy share)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fwd_ms = time_ms(lambda: models.forward(params, tokens, cfg), 3)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: models.forward(params, tokens, cfg), 3)
     log(f"forward LLAMA3_8B [1, 1024] warm: {fwd_ms} ms per call")
     eng = server.engine
     gen = torch.Generator().manual_seed(2)
@@ -192,25 +309,250 @@ def where_time_goes(models, params, cfg, server, tokens):
         eng.step()
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(profiled):
-            eng.step()
-        torch.cuda.synchronize()
-    kernels = sorted(((e.self_device_time_total, e.count, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     reverse=True)
-    busy_s = sum(t for t, _, _ in kernels) / 1e6 / profiled
+    busy_ms, kernels = device_profile(eng.step, profiled)
     log(f"decode: {eng.S} slots at ~200 tokens of context: "
         f"{step_s * 1e3} ms/step over {steps} steps = {eng.S / step_s} "
         f"tokens/s; over {profiled} profiled steps the device ran "
-        f"{busy_s * 1e3} ms/step, {busy_s / step_s} of the unprofiled step,"
-        f" in {sum(n for _, n, _ in kernels) / profiled} kernels/step")
-    for t, n, name in kernels[:10]:
-        log(f"  {t / profiled / 1e3} ms/step in {n / profiled} calls: "
-            f"{name[:100]}")
+        f"{busy_ms} ms/step, {busy_ms / 1e3 / step_s} of the unprofiled "
+        f"step, in {sum(n for _, n, _ in kernels)} kernels/step")
+    log_top(kernels)
     eng.run_to_completion()
+
+
+BWD_SHAPES = [  # (B, L, H, Hkv, D, causal): why
+    (4, 2048, 32, 8, 64, True),    # the training shape (LLAMA3_1B)
+    (1, 1024, 32, 8, 128, True),   # D = 128
+    (1, 200, 32, 8, 64, True),     # ragged L
+    (1, 256, 32, 8, 64, False),    # full mask
+]
+
+
+def check_bwd(attention, gen):
+    """Phase 6: the backward kernels against their plain version, on the
+    same inputs (the kernel forward's o and lse feed both); returns a row
+    per shape, the first at the training shape."""
+    import torch.nn.functional as F
+
+    rows = []
+    for B, L, H, Hkv, D, causal in BWD_SHAPES:
+        q = torch.randn(B, L, H, D, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, L, Hkv, D, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, L, Hkv, D, generator=gen, device="cuda").bfloat16()
+        do = torch.randn(B, L, H, D, generator=gen, device="cuda").bfloat16()
+        where = f"B={B} L={L} D={D} causal={causal}"
+        o, lse = attention.flash_attention_fwd(q, k, v, causal)
+        want_o, want_lse = attention.flash_attention_plain(
+            q, k, v, causal=causal, return_lse=True)
+        got = attention.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                   causal=causal)
+        torch.cuda.synchronize()
+        hold(o, want_o, BF16_ATOL, BF16_RTOL, f"flash_fwd {where}")
+        lse_err, _ = hold(lse, want_lse, LSE_TOL, 0.0, f"lse {where}")
+        row = dict(B=B, L=L, H=H, Hkv=Hkv, D=D, causal=causal,
+                   lse_max_abs_err=lse_err, rule=BF16_GRAD_RULE)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, share = hold_grad(g, w, BF16_GRAD_RULE, f"{name} {where}")
+            row[name] = dict(max_abs_err=err, share_of_limit=share,
+                             max_abs_want=float(w.float().abs().max()))
+
+        def bwd():
+            return attention.flash_attention_bwd(q, k, v, o, lse, do, causal)
+
+        row["bwd_ms"] = time_ms(bwd, 10)
+        _, kernels = device_profile(bwd, 5)
+        row["dkdv_ms"] = kernel_ms(kernels, "flash_bwd_dkdv_kernel")
+        row["dq_ms"] = kernel_ms(kernels, "flash_bwd_dq_kernel")
+        row["plain_ms"] = time_ms(lambda: attention.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=causal), 2)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+
+        row["library_ms"] = time_ms(
+            lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), 10) - \
+            time_ms(sdpa, 10)
+        whole, dkdv, dq = bwd_bounds(B, L, H, Hkv, D, causal)
+        row["bound_ms"], row["bound_by"] = whole
+        row["dkdv_bound_ms"], row["dkdv_bound_by"] = dkdv
+        row["dq_bound_ms"], row["dq_bound_by"] = dq
+        if B == 4:  # the forward with lse at the training shape
+            row["fwd_ms"] = time_ms(
+                lambda: attention.flash_attention_fwd(q, k, v, causal), 10)
+            row["fwd_plain_ms"] = time_ms(
+                lambda: attention.flash_attention_plain(
+                    q, k, v, causal=causal, return_lse=True), 2)
+            row["fwd_library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=causal, enable_gqa=True), 10)
+            row["fwd_bound_ms"], row["fwd_bound_by"] = attention_bound(
+                B, L, H, Hkv, D, causal)
+        rows.append(row)
+        log("bwd_check", json.dumps(row))
+    # fp32 inputs take the fp32 instantiations; q is a slice of a wider
+    # buffer and dO a transposed view without a unit-stride head dim, as
+    # autograd may hand one over.
+    q = torch.randn(1, 200, 4, 128, generator=gen, device="cuda")[..., :64]
+    do = torch.randn(1, 200, 64, 4, generator=gen,
+                     device="cuda").transpose(2, 3)
+    k, v = (torch.randn(1, 200, 2, 64, generator=gen, device="cuda")
+            for _ in range(2))
+    o, lse = attention.flash_attention_fwd(q, k, v, True)
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, True)
+    want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    errs = [hold_grad(g, w, FP32_GRAD_RULE, f"fp32 {name}")[0]
+            for name, g, w in zip(("dq", "dk", "dv"), got, want)]
+    log(f"bwd_check fp32 L=200 D=64 GQA, strided q and dO: max_abs_err dq, "
+        f"dk, dv = {errs}, rule {FP32_GRAD_RULE}")
+    return rows
+
+
+def check_small_training(models, gen):
+    """Phase 7: fp32 training on the card through the kernels against the
+    plain path on the CPU."""
+    cfg = models.LlamaConfig(vocab_size=512, d_model=256, n_layers=2,
+                             n_heads=4, n_kv_heads=2, d_ff=512,
+                             dtype=torch.float32)
+    params = models.init_params(cfg, gen, device="cuda")
+    cpu_params = _host_copy(params)
+    leaves, cpu_leaves = (models.trainable(params),
+                          models.trainable(cpu_params))
+    tokens = torch.randint(0, 512, (2, 100), generator=gen, device="cuda")
+    batches = {"card": {"tokens": tokens}, "host": {"tokens": tokens.cpu()}}
+    for remat, chunked in ((False, 0), (True, 128)):
+        losses = {}
+        for dev, tree, ls in (("card", params, leaves),
+                              ("host", cpu_params, cpu_leaves)):
+            for t in ls:
+                t.grad = None
+            loss = models.loss_fn(tree, batches[dev], cfg, remat=remat,
+                                  chunked_vocab=chunked)
+            loss.backward()
+            losses[dev] = loss.item()
+        if not abs(losses["card"] - losses["host"]) <= 1e-5 * losses["host"]:
+            raise AssertionError(f"small model loss {losses} differs")
+        worst = max(hold_grad(g.grad.cpu(), w.grad, FP32_GRAD_RULE,
+                              f"small model grad {i}")[1]
+                    for i, (g, w) in enumerate(zip(leaves, cpu_leaves)))
+        log(f"small_model fp32 remat={remat} chunked_vocab={chunked}: loss "
+            f"{losses['card']} (CPU {losses['host']}), {len(leaves)} "
+            f"gradients, worst element {worst} of rule {FP32_GRAD_RULE}")
+    start = [t.detach().cpu().clone() for t in cpu_leaves]
+    curves = {}
+    for dev, tree, ls in (("card", params, leaves),
+                          ("host", cpu_params, cpu_leaves)):
+        opt = torch.optim.AdamW(ls, lr=LR, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=0.1)
+        curve = []
+        for _ in range(3):
+            opt.zero_grad(set_to_none=True)
+            loss = models.loss_fn(tree, batches[dev], cfg)
+            loss.backward()
+            opt.step()
+            curve.append(loss.item())
+        curves[dev] = curve
+    if not all(abs(a - b) <= 1e-5 * b for a, b in zip(curves["card"],
+                                                     curves["host"])):
+        raise AssertionError(f"AdamW losses differ from the CPU: {curves}")
+    # Adam moves an element by about LR a step whatever its gradient's size,
+    # so a gradient wrong in sign moves it 2 LR a step away: each element's
+    # 3-step update is held to LR / 2 of the CPU's. Where a gradient is near
+    # eps (1e-8), fp32 differences in it far below the gradient rule move
+    # the update by a share of LR, so elementwise is all that can be asked;
+    # each tensor's whole update is also held to 1e-2 of its L2 norm.
+    worst = (0.0, 0.0, -1)
+    for i, (g, w, p0) in enumerate(zip(leaves, cpu_leaves, start)):
+        dc, dh = g.detach().cpu() - p0, w.detach() - p0
+        err = float((dc - dh).abs().max())
+        rel = float((dc - dh).norm() / dh.norm().clamp(min=1e-30))
+        if not (err <= LR / 2 and rel <= 1e-2):
+            raise AssertionError(f"AdamW update of parameter {i} differs "
+                                 f"from the CPU: max {err}, relative L2 "
+                                 f"{rel}")
+        worst = max(worst, (err, rel, i))
+    err, rel, i = worst
+    at = int((leaves[i].detach().cpu() - cpu_leaves[i].detach()).abs()
+             .argmax())
+    grads = (float(leaves[i].grad.flatten()[at]),
+             float(cpu_leaves[i].grad.flatten()[at]))
+    log(f"small_model fp32 3 AdamW steps: losses {curves['card']} (CPU "
+        f"{curves['host']}); worst update error {err} (limit {LR / 2}) in "
+        f"parameter {i}, relative L2 {rel} (limit 1e-2), where the last "
+        f"gradients were {grads} (card, CPU)")
+
+
+def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
+              chunked):
+    """Phase 8, one run of the training main path from weights drawn from
+    ``seed``: ``warm`` + ``timed`` AdamW steps on the same tokens, with both
+    launch counts reset just before and read just after, then one profiled
+    step. The weights and optimizer are freed on return."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = models.init_params(cfg, gen, device="cuda")
+    opt = torch.optim.AdamW(models.trainable(params), lr=LR,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1)
+    batch = {"tokens": tokens}
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = models.loss_fn(params, batch, cfg, remat=remat,
+                              chunked_vocab=chunked)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts reset just before, read just after
+    attention.launches = 0
+    attention.bwd_launches = 0
+    losses = [step() for _ in range(warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(timed)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    fwd, bwd = attention.launches, attention.bwd_launches
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    steps = warm + timed
+    passes = steps * (2 if remat else 1)  # remat runs each forward again
+    name = f"remat={remat} chunked_vocab={chunked}"
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: losses {losses} not finite and "
+                             f"falling")
+    if fwd != cfg.n_layers * passes or bwd != cfg.n_layers * steps:
+        raise AssertionError(f"{name}: flash_fwd launched {fwd} times "
+                             f"(expected {cfg.n_layers * passes}), "
+                             f"flash_bwd {bwd} (expected "
+                             f"{cfg.n_layers * steps})")
+    B, L = tokens.shape
+    tok_s = B * L / step_s
+    mfu = models.flops_per_token(cfg, L) * tok_s / H100_BF16_FLOPS
+    busy_ms, kernels = device_profile(step, 1)
+    log(f"train LLAMA3_1B {name} [{B}, {L}]: losses {losses}; "
+        f"{step_s * 1e3} ms/step over {timed} timed steps = {tok_s} "
+        f"tokens/s, MFU {mfu}; peak memory {peak / 2**30} GiB; "
+        f"launches flash_fwd {fwd} = {cfg.n_layers} x {passes} forward "
+        f"passes, flash_bwd {bwd} = {cfg.n_layers} x {steps} steps")
+    log(f"train profile {name}: the device ran {busy_ms} ms in one step, "
+        f"{busy_ms / 1e3 / step_s} of the unprofiled step, in "
+        f"{sum(n for _, n, _ in kernels)} kernels")
+    log_top(kernels)
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=step_s * 1e3, tokens_per_s=tok_s,
+                mfu=mfu, peak_gib=peak / 2**30, fwd_launches=fwd,
+                bwd_launches=bwd, busy_share=busy_ms / 1e3 / step_s)
 
 
 async def serve_requests(server, requests):
@@ -236,14 +578,18 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}"
         f"; devices {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    lib = attention.build()
-    log(f"build: {lib.name} in {time.perf_counter() - t0} s")
-    ptxas = lib.with_suffix(".log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("ptxas:", line.strip())
+    t_start = t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(attention.KERNELS)) as pool:  # one nvcc each
+        libs = list(pool.map(attention.build, attention.KERNELS))
+    log(f"build: {[lib.name for lib in libs]} in {time.perf_counter() - t0}"
+        f" s, in parallel")
+    for lib in libs:
+        ptxas = lib.with_suffix(".log")
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line or \
+                        "Compiling" in line:
+                    log("ptxas:", line.strip()[:160])
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = check_kernel(attention, gen)
@@ -270,7 +616,8 @@ def main() -> int:
     attention.launches = 0
     events.reset()
     t0 = time.perf_counter()
-    logits = models.forward(params, tokens, cfg)
+    with torch.no_grad():
+        logits = models.forward(params, tokens, cfg)
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     finite = bool(torch.isfinite(logits).all())
@@ -307,23 +654,94 @@ def main() -> int:
         f"(1 forward + {prefills} prefills)")
 
     where_time_goes(models, params, cfg, server, tokens)
+    serve_launches = launches
+    del params, server, logits, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serving phases done at {time.perf_counter() - t_start} s; "
+        f"{torch.cuda.memory_allocated() / 2**30} GiB still allocated")
+
+    bwd_rows = check_bwd(attention, gen)
+    check_small_training(models, gen)
+
+    cfg = models.LLAMA3_1B
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=gen,
+                           device="cuda")
+    log(f"LLAMA3_1B: {cfg.param_count()} params, d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+    dense = train_run(models, attention, cfg, tokens, seed=7, warm=1,
+                      timed=5, remat=False, chunked=0)
+    remat = train_run(models, attention, cfg, tokens, seed=7, warm=1,
+                      timed=2, remat=True, chunked=16384)
+    # Both runs start from the same weights: the first losses differ only
+    # by where the logits are rounded to bf16 (the dense head's output
+    # against the chunked loss's fp32 products), a few bf16 steps (2**-8)
+    # of the loss at most.
+    first = (dense["losses"][0], remat["losses"][0])
+    if not abs(first[1] - first[0]) <= 1e-2 * abs(first[0]):
+        raise AssertionError(f"first losses differ: dense {first[0]}, "
+                             f"remat + chunked {first[1]}")
+    log(f"first loss: dense {first[0]}, remat + chunked {first[1]}")
 
     main = next(r for r in rows if r["L"] == 1024)
+    train = bwd_rows[0]
+    train_shape = "B=4 L=2048 H=32 Hkv=8 D=64 causal bf16"
+    bwd_launches = dense["bwd_launches"] + remat["bwd_launches"]
+    mosaic = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:109",
         "also_replaces": "ray_tpu/ops/attention.py:231 (forward)",
-        "launches": launches,
+        "launches": serve_launches + dense["fwd_launches"]
+        + remat["fwd_launches"],
+        "launches_by_path": {"serve": serve_launches,
+                             "train_dense": dense["fwd_launches"],
+                             "train_remat_chunked": remat["fwd_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "shape": "B=1 L=1024 H=32 Hkv=8 D=128 causal bf16",
+        "train_shape": {"shape": train_shape + ", with lse",
+                        "ms": train["fwd_ms"],
+                        "plain_ms": train["fwd_plain_ms"],
+                        "bound_ms": train["fwd_bound_ms"],
+                        "bound_by": train["fwd_bound_by"],
+                        "library_ms": train["fwd_library_ms"]},
     }]
-    if not all(math.isfinite(main[k]) for k in ("ms", "plain_ms",
-                                                 "library_ms")):
-        raise AssertionError(f"non-finite timing {main}")
+    for name, part in (("dkdv", "dK, dV"), ("dq", "dQ")):
+        kernels.append({
+            "name": f"flash_bwd_{name}", "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "ray_tpu/ops/attention.py:231",
+            "replaces_detail": (
+                f"backward of _tpu_flash: Mosaic "
+                + (f"_flash_attention_bwd_dkv ({mosaic}:941)"
+                   if name == "dkdv" else
+                   f"_flash_attention_bwd_dq ({mosaic}:1287)")),
+            "launches": bwd_launches,
+            "launches_by_path": {"train_dense": dense["bwd_launches"],
+                                 "train_remat_chunked":
+                                     remat["bwd_launches"]},
+            "max_abs_err": max(r[g]["max_abs_err"] for r in bwd_rows
+                               for g in (("dk", "dv") if name == "dkdv"
+                                         else ("dq",))),
+            "ms": train[f"{name}_ms"], "plain_ms": train["plain_ms"],
+            "bound_ms": train[f"{name}_bound_ms"],
+            "bound_by": train[f"{name}_bound_by"],
+            "library_ms": train["library_ms"],
+            "computes": part,
+            "plain_and_library_compute": "dQ, dK and dV",
+            "backward_ms": train["bwd_ms"],
+            "backward_bound_ms": train["bound_ms"],
+            "shape": train_shape,
+        })
+    if not all(math.isfinite(k[f]) for k in kernels
+               for f in ("ms", "plain_ms", "library_ms", "bound_ms")):
+        raise AssertionError(f"non-finite timing in {kernels}")
+    log(f"chip_smoke done in {time.perf_counter() - t_start} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

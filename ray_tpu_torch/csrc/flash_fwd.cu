@@ -8,7 +8,10 @@
 //     library kernel `jax.experimental.pallas.ops.tpu.flash_attention`).
 // It computes what they compute, softmax(scale * Q K^T) V with an optional
 // causal mask `row >= col`, an fp32 online softmax, and the output divided
-// by max(l, 1e-30). It differs from them where the TPU shaped them:
+// by max(l, 1e-30). For the backward pass it can also write each row's
+// log-sum-exp of the scaled scores, lse = m + log(max(l, 1e-30)), fp32
+// [B, H, Lq]: Mosaic's forward saves l and m as residuals for the same use.
+// It differs from them where the TPU shaped them:
 //   * GQA: query head h reads kv head h / (H / Hkv); K/V are never repeated.
 //   * Layout: it reads [B, L, H, D] through strides, so no transpose copy.
 //   * Ragged L: any length; the tile edge is masked in the kernel.
@@ -31,30 +34,16 @@
 // (d = lane + 32 e, so stores coalesce). The running sum l is kept per lane
 // and reduced once at the end.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace ray_flash;
 
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 16;
 constexpr int kBlockQ = kWarps * kRowsPerWarp;
 constexpr int kBlockK = 32;
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-struct Strides {
-  long long b, l, h;  // in elements; the D axis has stride 1
-};
 
 template <int D>
 constexpr int smem_floats() {
@@ -64,9 +53,10 @@ constexpr int smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Lq, int Lk,
-                 int group, Strides qs, Strides ks, Strides vs, Strides os,
-                 float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Lq, int Lk, int group,
+                 Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                 int causal) {
   constexpr int E = D / 32;  // output columns per lane
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                    // [kBlockQ][D], pre-scaled
@@ -172,6 +162,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = row0 + r;
     if (row < Lq) {
       const float denom = fmaxf(lr, 1e-30f);
+      // m is the warp's row max, the same on every lane.
+      if (lse != nullptr && lane == 0)
+        lse[(static_cast<long long>(b) * gridDim.y + h) * Lq + row] =
+            m[r] + logf(denom);
       T* out = o + b * os.b + row * os.l + h * os.h;
 #pragma unroll
       for (int e = 0; e < E; ++e) store(out + lane + 32 * e, acc[r][e] / denom);
@@ -180,31 +174,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Lq, int Lk, int H, int Hkv, const long long* st, float scale,
-           int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Lq, int Lk, int H, int Hkv, const long long* st,
+           float scale, int causal, cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  // Above 48 KB of shared memory needs an opt-in, once per instantiation
-  // and device (setting it again from a racing thread is harmless).
-  constexpr int kMaxDevices = 64;
   static bool smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(flash_fwd_kernel<T, D>), smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices) smem_set[dev] = true;
-  }
-  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
-      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
   flash_fwd_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, H / Hkv, qs, ks,
-      vs, os, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Lq, Lk, H / Hkv,
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      strides_at(st, 3), scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -213,32 +196,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // Returns 0 on success, a cudaError_t value if the launch failed, and a
 // negative code for arguments the kernel does not take: -1 dtype, -2 head
 // dim, -3 shapes. dtype: 0 = float32, 1 = bfloat16. strides: 12 values,
-// (batch, seq, head) for q, k, v and o in that order, in elements.
+// (batch, seq, head) for q, k, v and o in that order, in elements. lse:
+// null, or fp32 [B, H, Lq] contiguous for the rows' log-sum-exp.
 extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, int dtype, int B, int Lq, int Lk, int H,
-                             int Hkv, int D, const long long* strides,
-                             float scale, int causal, void* stream) {
+                             void* o, float* lse, int dtype, int B, int Lq,
+                             int Lk, int H, int Hkv, int D,
+                             const long long* strides, float scale,
+                             int causal, void* stream) {
   if (B < 1 || Lq < 1 || Lk < 1 || Hkv < 1 || H % Hkv != 0 ||
       (causal && Lq != Lk) || B > 65535 || H > 65535)
     return -3;
+  if (D != 64 && D != 128) return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (D == 64)
-      return launch<float, 64>(q, k, v, o, B, Lq, Lk, H, Hkv, strides, scale,
-                               causal, s);
-    if (D == 128)
-      return launch<float, 128>(q, k, v, o, B, Lq, Lk, H, Hkv, strides, scale,
-                                causal, s);
-    return -2;
-  }
-  if (dtype == 1) {
-    if (D == 64)
-      return launch<__nv_bfloat16, 64>(q, k, v, o, B, Lq, Lk, H, Hkv, strides,
-                                       scale, causal, s);
-    if (D == 128)
-      return launch<__nv_bfloat16, 128>(q, k, v, o, B, Lq, Lk, H, Hkv,
+  if (dtype == 0)
+    return D == 64 ? launch<float, 64>(q, k, v, o, lse, B, Lq, Lk, H, Hkv,
+                                       strides, scale, causal, s)
+                   : launch<float, 128>(q, k, v, o, lse, B, Lq, Lk, H, Hkv,
                                         strides, scale, causal, s);
-    return -2;
-  }
+  if (dtype == 1)
+    return D == 64
+               ? launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, Lq, Lk, H, Hkv,
+                                           strides, scale, causal, s)
+               : launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, Lq, Lk, H,
+                                            Hkv, strides, scale, causal, s);
   return -1;
 }

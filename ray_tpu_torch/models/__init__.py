@@ -1,20 +1,24 @@
 from .llama import (
-    generate_sample,
     LLAMA3_1B,
     LLAMA3_8B,
     LLAMA_DEBUG,
     LlamaConfig,
+    flops_per_token,
     forward,
     forward_hidden,
     generate_greedy,
+    generate_sample,
     init_params,
+    loss_fn,
+    next_token_targets,
 )
 
-from .convert import params_from_numpy
+from .convert import params_from_numpy, params_to_numpy, trainable
 from .engine import GenerationEngine
 
 __all__ = [
     "LlamaConfig", "LLAMA3_8B", "LLAMA3_1B", "LLAMA_DEBUG", "init_params",
-    "forward", "forward_hidden", "generate_greedy", "generate_sample",
-    "GenerationEngine", "params_from_numpy",
+    "forward", "forward_hidden", "loss_fn", "next_token_targets",
+    "flops_per_token", "generate_greedy", "generate_sample",
+    "GenerationEngine", "params_from_numpy", "params_to_numpy", "trainable",
 ]

@@ -2,8 +2,10 @@
 
 Port of ``ray_tpu/models/llama.py``: the same parameter tree, names and
 ``[in, out]`` weight layout, so a JAX tree converts as it is
-(``models/convert.py``). The loss, chunked vocab and remat belong to the
-training slice and are not here.
+(``models/convert.py``). ``forward_hidden``, ``forward`` and ``loss_fn``
+are differentiable, with per-layer remat (``torch.utils.checkpoint``, for
+``jax.checkpoint``) and the chunked-vocab loss; the cached decode path
+runs under ``torch.no_grad``.
 
 KV caches are per-layer ``(k, v)`` tensors ``[B, total, Hkv, D]`` that
 ``_decode_step`` writes in place (JAX returns new arrays); the write-back
@@ -18,11 +20,14 @@ from typing import Any, Dict, List, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import NEG_INF, flash_attention
-from ..ops.layers import apply_rope, rms_norm, rope_frequencies
-from ..ops.quant import mm
+from ..ops.chunked_xent import chunked_cross_entropy
+from ..ops.layers import (apply_rope, cross_entropy_loss, rms_norm,
+                          rope_frequencies)
+from ..ops.quant import Q8, mm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,26 +184,75 @@ def _head(params, cfg: LlamaConfig):
     return params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-@torch.no_grad()
+def _layer(x, layer, cos, sin, cfg: LlamaConfig):
+    a, _ = _attention_block(layer, x, cos, sin, cfg)
+    x = x + a
+    return x + _mlp_block(layer, x, cfg)
+
+
 def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
-                   cfg: LlamaConfig) -> torch.Tensor:
-    """Final-norm hidden states [B, L, D] (no lm_head projection)."""
+                   cfg: LlamaConfig, remat: bool = True) -> torch.Tensor:
+    """Final-norm hidden states [B, L, D] (no lm_head projection).
+
+    ``remat`` recomputes each layer's activations in the backward pass
+    instead of keeping them; it has no effect where no gradient is taken."""
     cos, sin = rope_frequencies(cfg.head_dim, tokens.shape[1],
                                 cfg.rope_theta, device=tokens.device)
     x = params["embedding"][tokens.long()].to(cfg.dtype)
     for layer in params["layers"]:
-        a, _ = _attention_block(layer, x, cos, sin, cfg)
-        x = x + a
-        x = x + _mlp_block(layer, x, cfg)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_layer, x, layer, cos, sin, cfg,
+                           use_reentrant=False)
+        else:
+            x = _layer(x, layer, cos, sin, cfg)
     return rms_norm(x, params["norm"], cfg.norm_eps)
 
 
-@torch.no_grad()
-def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig
-            ) -> torch.Tensor:
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
+            remat: bool = True) -> torch.Tensor:
     """Logits for a token batch. tokens: [B, L] int -> [B, L, V]."""
-    x = forward_hidden(params, tokens, cfg)
+    x = forward_hidden(params, tokens, cfg, remat=remat)
     return mm(x, _head(params, cfg))
+
+
+def next_token_targets(tokens: torch.Tensor) -> torch.Tensor:
+    """Shifted targets with -100 (ignore) padding the final position."""
+    return torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -100)],
+                     dim=1)
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: LlamaConfig, remat: bool = True,
+            chunked_vocab: int = 0) -> torch.Tensor:
+    """Mean next-token loss. batch: {"tokens": [B, L]} or {"tokens",
+    "targets"}.
+
+    ``chunked_vocab > 0`` streams the vocab softmax in chunks of that size
+    (``ops/chunked_xent.py``), so the [B, L, V] fp32 logits are never
+    materialised."""
+    tokens = batch["tokens"]
+    targets = batch.get("targets")
+    if targets is None:
+        targets = next_token_targets(tokens)
+    if chunked_vocab > 0:
+        x = forward_hidden(params, tokens, cfg, remat=remat)
+        head = _head(params, cfg)
+        if isinstance(head, Q8):
+            # the chunked loss streams its own products from dense weights
+            head = head.w.to(x.dtype) * head.s
+        B, L, D = x.shape
+        return chunked_cross_entropy(x.reshape(B * L, D), head,
+                                     targets.reshape(B * L), chunked_vocab)
+    logits = forward(params, tokens, cfg, remat=remat)
+    loss, _ = cross_entropy_loss(logits, targets)
+    return loss
+
+
+def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
+    """Approximate training FLOPs per token (6 N plus the attention term),
+    for MFU."""
+    attn = 12 * cfg.n_layers * cfg.d_model * seq_len  # fwd+bwd attention
+    return 6 * cfg.param_count() + attn
 
 
 @torch.no_grad()

@@ -1,20 +1,23 @@
-"""Attention: the Hopper flash-attention forward kernel and its plain
-versions. Layout throughout: [B, L, H, D]; K/V may carry fewer heads (GQA).
+"""Attention: the Hopper flash-attention kernels and their plain versions.
+Layout throughout: [B, L, H, D]; K/V may carry fewer heads (GQA).
 
 Port of ``ray_tpu/ops/attention.py``:
-  * ``flash_attention`` launches ``csrc/flash_fwd.cu`` for a CUDA tensor
-    (or raises) and runs ``flash_attention_plain`` for a CPU tensor. The
-    kernel replaces ``_flash_attention_bhld`` (``_flash_kernel``) and the
-    forward half of ``_tpu_flash`` (the Mosaic flash kernel); the source
-    note in the ``.cu`` file says what bounds it.
-  * ``flash_attention_plain`` is the same blockwise fp32 online softmax in
-    PyTorch. The CPU tests run it, and the chip check holds the kernel
-    against it; nothing on the CUDA path calls it.
+  * ``flash_attention`` is differentiable. For a CUDA tensor its forward
+    launches ``csrc/flash_fwd.cu`` and, when a gradient is wanted, its
+    backward launches the dK/dV and dQ kernels of ``csrc/flash_bwd.cu``
+    (or raises); for a CPU tensor both run the plain versions. The kernels
+    replace ``_flash_attention_bhld`` (``_flash_kernel``) and both halves
+    of ``_tpu_flash`` (the Mosaic flash kernels); the source notes in the
+    ``.cu`` files say what bounds them.
+  * ``flash_attention_plain`` and ``flash_attention_bwd_plain`` are the
+    same blockwise fp32 math in PyTorch. The CPU tests run them, and the
+    chip check holds the kernels against them; nothing on the CUDA path
+    calls them.
   * ``dense_attention`` is the JAX package's oracle.
 
-The kernel is built at its first CUDA use with ``nvcc`` into
-``ray_tpu_torch/_build/``, keyed by a hash of its source, and loaded with
-``ctypes``. A failed build raises.
+Each kernel is built at its first CUDA use with ``nvcc`` into
+``ray_tpu_torch/_build/``, keyed by a hash of its sources, and loaded
+with ``ctypes``. A failed build raises.
 """
 
 from __future__ import annotations
@@ -33,16 +36,21 @@ import torch
 NEG_INF = -1e30
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "flash_fwd.cu"
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
+#: The kernel libraries, each built from ``csrc/<name>.cu``.
+KERNELS = ("flash_fwd", "flash_bwd")
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Kernel launches made by ``flash_attention``; a run that resets it and
-#: reads it after shows that its path went through the kernel.
+#: Forward kernel launches made by ``flash_attention``; a run that resets
+#: it and reads it after shows that its path went through the kernel.
 launches = 0
+#: Backward calls that launched the kernels: each launches the dK/dV
+#: kernel and the dQ kernel once.
+bwd_launches = 0
 
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
 
 
@@ -74,12 +82,14 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, causal: bool = False,
                           scale: Optional[float] = None,
-                          block_q: int = 64, block_k: int = 32
-                          ) -> torch.Tensor:
-    """The kernel's math in PyTorch: per (query block, key block) an fp32
-    online softmax, masked probabilities set to 0, causal block skipping,
-    any L (the last blocks are short), output divided by max(l, 1e-30)
-    and cast to q's dtype."""
+                          block_q: int = 64, block_k: int = 32,
+                          return_lse: bool = False):
+    """The forward kernel's math in PyTorch: per (query block, key block)
+    an fp32 online softmax, masked probabilities set to 0, causal block
+    skipping, any L (the last blocks are short), output divided by
+    max(l, 1e-30) and cast to q's dtype. With ``return_lse`` it also
+    returns each row's log-sum-exp of the scaled scores, fp32 [B, H, Lq],
+    as ``(o, lse)``."""
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     if causal and Lq != Lk:
@@ -92,6 +102,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
     vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
     out = torch.empty(B, H, Lq, D, dtype=torch.float32, device=q.device)
+    lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
     for q0 in range(0, Lq, block_q):
         qb = qf[:, :, q0:q0 + block_q]
         nq = qb.shape[2]
@@ -116,30 +127,132 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
             l = l * alpha + p.sum(dim=-1)
             acc = acc * alpha[..., None] + p @ vf[:, :, k0:k0 + block_k]
             m = m_new
-        out[:, :, q0:q0 + nq] = acc / l.clamp(min=1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+        denom = l.clamp(min=1e-30)
+        out[:, :, q0:q0 + nq] = acc / denom[..., None]
+        lse[:, :, q0:q0 + nq] = m + torch.log(denom)
+    o = out.transpose(1, 2).to(q.dtype)
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool = False,
+                              scale: Optional[float] = None,
+                              block_q: int = 64, block_k: int = 32):
+    """The backward kernels' math in PyTorch: per (query block, key block)
+    recompute p = exp(scale q.k - lse) in fp32 (masked ones 0, causal block
+    skipping, any L), then dV += P^T dO, dS = P (dO V^T - di) with
+    di = rowsum(o * dO), dK += scale dS^T Q and dQ += scale dS K. dK and dV
+    of a kv head sum over its group of query heads. Returns
+    ``(dq, dk, dv)`` in the dtypes of q, k and v."""
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    if causal and Lq != Lk:
+        raise ValueError(f"causal flash attention needs Lq == Lk, got "
+                         f"{Lq} and {Lk}")
+    if scale is None:
+        scale = D ** -0.5
+    group = H // Hkv
+    qf = q.float().transpose(1, 2) * scale                    # [B,H,Lq,D]
+    kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    dof = do.float().transpose(1, 2)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2)     # [B,H,Lq]
+    dq = torch.zeros(B, H, Lq, D, device=q.device)
+    dk = torch.zeros(B, H, Lk, D, device=q.device)
+    dv = torch.zeros(B, H, Lk, D, device=q.device)
+    for q0 in range(0, Lq, block_q):
+        q1 = min(Lq, q0 + block_q)
+        rows = torch.arange(q0, q1, device=q.device)[:, None]
+        hi = min(Lk, q1) if causal else Lk
+        for k0 in range(0, hi, block_k):
+            k1 = min(Lk, k0 + block_k)
+            s = qf[:, :, q0:q1] @ kf[:, :, k0:k1].transpose(-1, -2)
+            p = torch.exp(s - lse[:, :, q0:q1, None])
+            if causal:
+                cols = torch.arange(k0, k1, device=q.device)[None, :]
+                p = torch.where(rows >= cols, p, 0.0)
+            dob = dof[:, :, q0:q1]
+            dv[:, :, k0:k1] += p.transpose(-1, -2) @ dob
+            ds = p * (dob @ vf[:, :, k0:k1].transpose(-1, -2)
+                      - di[:, :, q0:q1, None])
+            dk[:, :, k0:k1] += ds.transpose(-1, -2) @ qf[:, :, q0:q1]
+            dq[:, :, q0:q1] += ds @ kf[:, :, k0:k1]
+    dq = (dq * scale).transpose(1, 2)
+    dk = dk.view(B, Hkv, group, Lk, D).sum(2).transpose(1, 2)
+    dv = dv.view(B, Hkv, group, Lk, D).sum(2).transpose(1, 2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = False, scale: Optional[float] = None):
+    """The forward that a backward needs: ``(o, lse)``, with each row's
+    fp32 log-sum-exp [B, H, Lq]. The kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, float(scale), with_lse=True)
+    return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                 return_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = False, scale: Optional[float] = None):
+    """``(dq, dk, dv)`` from the forward's inputs, ``o`` and ``lse`` and
+    the output gradient ``do``. The dK/dV and dQ kernels for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, o, lse, do, causal, float(scale))
+    return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                     scale=scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        o, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = flash_attention_bwd(*ctx.saved_tensors, do, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     segment_ids: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Forward flash attention, [B, L, H, D], GQA-aware.
+    """Flash attention, [B, L, H, D], GQA-aware, differentiable.
 
-    A CUDA tensor goes to the Hopper kernel; shapes, types or options it
-    does not take raise. A CPU tensor runs ``flash_attention_plain``
-    (``dense_attention`` when ``segment_ids`` is given, as the JAX
-    package does off the TPU)."""
+    A CUDA tensor goes to the Hopper kernels; shapes, types or options they
+    do not take raise. A CPU tensor runs the plain versions
+    (``dense_attention`` when ``segment_ids`` is given, as the JAX package
+    does off the TPU). Where no gradient is wanted (``torch.no_grad``, or
+    no input requires one) only the forward runs, without the row
+    statistics the backward needs."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type != "cuda":
-        if segment_ids is not None:
-            return dense_attention(q, k, v, causal=causal, scale=scale,
-                                   segment_ids=segment_ids)
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids are not supported by the CUDA flash kernel")
+        if q.device.type == "cuda":
+            raise NotImplementedError(
+                "segment_ids are not supported by the CUDA flash kernel")
+        return dense_attention(q, k, v, causal=causal, scale=scale,
+                               segment_ids=segment_ids)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, float(scale))
+    if q.device.type != "cuda":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     return _launch(q, k, v, causal, float(scale))
 
 
@@ -170,25 +283,66 @@ def _check(q, k, v, causal):
             raise ValueError(f"{name} must have a unit-stride head dim")
 
 
-def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+def _strides(*ts) -> ctypes.Array:
+    """(batch, seq, head) strides of each tensor, flat, for the kernels."""
+    flat = [n for t in ts for n in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _launch(q, k, v, causal: bool, scale: float, with_lse: bool = False):
+    """Run the forward kernel; returns ``o``, or ``(o, lse)`` with the rows'
+    fp32 log-sum-exp [B, H, Lq] when ``with_lse``."""
     global launches
     _check(q, k, v, causal)
-    lib = _load()
+    lib = _load("flash_fwd")
     B, Lq, H, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     o = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+    lse = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.ray_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               o.data_ptr(), _DTYPE_CODES[q.dtype], B, Lq,
-                               Lk, H, Hkv, D, strides, scale, int(causal),
-                               stream)
+        rc = lib.ray_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), _DTYPE_CODES[q.dtype],
+            B, Lq, Lk, H, Hkv, D, _strides(q, k, v, o), scale, int(causal),
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed with code {rc}")
     launches += 1
-    return o
+    return (o, lse) if with_lse else o
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
+    """Run the dK/dV and dQ kernels; returns ``(dq, dk, dv)``."""
+    global bwd_launches
+    _check(q, k, v, causal)
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dO must match q: {tuple(do.shape)} {do.dtype} on "
+                         f"{do.device}")
+    if do.stride(-1) != 1:  # autograd may hand over an expanded gradient
+        do = do.contiguous()
+    if lse.shape != (B, H, Lq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous():
+        raise ValueError("lse must be contiguous fp32 [B, H, Lq]")
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    lib = _load("flash_bwd")
+    dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Lk, Hkv, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Lk, Hkv, D), dtype=v.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ray_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _DTYPE_CODES[q.dtype], B, Lq, Lk, H, Hkv, D,
+            _strides(q, k, v, do, dq, dk, dv), scale, int(causal), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd kernel launch failed with code {rc}")
+    bwd_launches += 1
+    return dq, dk, dv
 
 
 def _nvcc() -> str:
@@ -196,16 +350,21 @@ def _nvcc() -> str:
 
     if CUDA_HOME is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
-                           "toolkit to build the flash kernel")
+                           "toolkit to build the flash kernels")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build() -> Path:
-    """Compile ``csrc/flash_fwd.cu`` for sm_90a into ``_build/`` unless a
-    library built from the same source is there; returns its path."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"flash_fwd_{tag}.so"
+def build(name: str = "flash_fwd") -> Path:
+    """Compile ``csrc/<name>.cu`` for sm_90a into ``_build/`` unless a
+    library built from the same sources (the ``.cu`` and the shared
+    header) is there; returns its path. ptxas's report is kept beside it
+    as ``<library>.log``."""
+    if name not in KERNELS:
+        raise ValueError(f"unknown kernel library {name!r}")
+    source = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes())
+    digest.update((_CSRC / "flash_common.cuh").read_bytes())
+    lib_path = _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
     if lib_path.exists():
         return lib_path
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -213,28 +372,34 @@ def build() -> Path:
     os.close(fd)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, str(_SOURCE)]
+           "-Xptxas", "-v", "-o", tmp, str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    (_BUILD_DIR / f"flash_fwd_{tag}.log").write_text(proc.stderr)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {name}.cu:"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    lib_path.with_suffix(".log").write_text(proc.stderr)
     os.replace(tmp, lib_path)
     return lib_path
 
 
-def _load():
-    global _lib
+_ARGTYPES = {
+    "flash_fwd": ("ray_flash_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                     ctypes.c_int, ctypes.c_void_p]),
+    "flash_bwd": ("ray_flash_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                     ctypes.c_int, ctypes.c_void_p]),
+}
+
+
+def _load(name: str):
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.ray_flash_fwd.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                ctypes.c_int, ctypes.c_void_p]
-            lib.ray_flash_fwd.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name)))
+            fn_name, argtypes = _ARGTYPES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+    return _libs[name]

@@ -58,21 +58,23 @@ def quantize_params(params: dict) -> dict:
     return out
 
 
-def _leaves(tree: Any):
+def tree_leaves(tree: Any):
+    """The tensor and ``Q8`` leaves of a tree of dicts, lists and tuples,
+    in order (dicts in insertion order)."""
     if isinstance(tree, (Q8, torch.Tensor)):
         yield tree
     elif isinstance(tree, dict):
         for v in tree.values():
-            yield from _leaves(v)
+            yield from tree_leaves(v)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            yield from _leaves(v)
+            yield from tree_leaves(v)
 
 
 def quantized_nbytes(params: Any) -> int:
     """Total parameter bytes (Q8 leaves count their int8 + scale)."""
     total = 0
-    for leaf in _leaves(params):
+    for leaf in tree_leaves(params):
         if isinstance(leaf, Q8):
             total += leaf.w.numel() + leaf.s.numel() * leaf.s.element_size()
         else:

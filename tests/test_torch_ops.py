@@ -204,7 +204,8 @@ def test_plain_flash_rejects_causal_with_unequal_lengths():
 
 def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
     monkeypatch.setattr(tattn, "launches", 0)
-    monkeypatch.setattr(tattn, "_load", lambda: pytest.fail("kernel load"))
+    monkeypatch.setattr(tattn, "_load",
+                        lambda name: pytest.fail("kernel load"))
     q, k, v = _qkv(5, lq=16, lk=16)
     tattn.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True)
     assert tattn.launches == 0
@@ -241,6 +242,11 @@ def test_port_sources_import_no_jax_and_no_ray_tpu():
             else:
                 continue
             bad += [f"{path.name}: {n}" for n in names if _forbidden(n)]
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    # the training slice's loss and the code that builds and loads the
+    # .cu kernels are covered like the rest
+    assert {"ray_tpu_torch/ops/chunked_xent.py",
+            "ray_tpu_torch/ops/attention.py"} <= names
     assert len(_port_sources()) > 10
     assert not bad, bad
 
@@ -250,6 +256,9 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.ops, ray_tpu_torch.models\n"
         "import ray_tpu_torch.serve, ray_tpu_torch.util.events\n"
+        "import ray_tpu_torch.ops.chunked_xent, ray_tpu_torch.models.convert\n"
+        "from ray_tpu_torch.ops import attention\n"
+        "assert attention.KERNELS == ('flash_fwd', 'flash_bwd')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{_FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
