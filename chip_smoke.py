@@ -5,9 +5,9 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the exit code is then not 0):
-  1. the card's name and power limit; both kernel libraries, built at once
-     from ray_tpu_torch/csrc/flash_fwd.cu and flash_bwd.cu, and what ptxas
-     reported;
+  1. the card's name and power limit; the three kernel libraries, built at
+     once (one nvcc each) from ray_tpu_torch/csrc/flash_fwd.cu,
+     flash_bwd.cu and flash_stats.cu, and what ptxas reported;
   2. the forward kernel against its plain PyTorch version on the same bf16
      inputs at the serving shapes (the output and the rows' log-sum-exp),
      with its time, the plain version's, that of torch's
@@ -36,9 +36,30 @@ Phases, each of which raises on failure (the exit code is then not 0):
      depth, bf16, random weights, tokens [4, 2048], AdamW(3e-4, weight
      decay 0.1), the same tokens every step: dense loss without remat (1
      warm-up and 5 timed steps), then remat with the chunked-vocab loss
-     (3 steps) from the same weights. Both launch counts are reset just
+     (3 steps) from the same weights. Every launch count is reset just
      before each run and read just after; the run prints step time,
-     tokens/s, MFU, peak memory and a torch.profiler breakdown of a step.
+     tokens/s, MFU, peak memory and a torch.profiler breakdown of a step;
+  9. the stats kernel (ring attention's block step) against its plain
+     version on the same bf16 inputs at the ring shard shape of phase 11
+     (B=1, Lq=Lk=2048, 32/8 heads, D=64) for every key visible, the
+     diagonal block, none and a ragged pattern, then D=128 with Lq != Lk,
+     and once in fp32 with a stride-0 visible and a strided q; rows that
+     see no key must give m == NEG_INF. With its time, the plain
+     version's, the bound and torch's flash attention with its row
+     log-sum-exp (a yardstick only; the port never calls it);
+ 10. a small fp32 model: the loss and every gradient through the sp = 4
+     ring (flash block step) on the card, against the same on the CPU
+     through the plain versions and against the card's flash_attention;
+ 11. the sequence-parallel main path: LLAMA3_1B at full width and depth,
+     bf16, phase 8's tokens as one [1, 8192] sequence, the sp = 4 ring
+     (flash) with its ranks in lockstep on this card, AdamW, the dense
+     loss without remat: 1 warm-up and 3 timed steps, the stats kernel's
+     launches held to n_layers x 16 x 4, then a profiled step. From the
+     same weights 1 warm-up and 2 timed steps through flash_attention (K2)
+     and as many through sp = 4 Ulysses (K1/K2), each with a profiled
+     step; the three first losses agree within 1e-3. Then the ring's
+     output and gradients at one layer's shape, held per element to
+     flash_attention's, and its forward and backward timed beside them.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -172,6 +193,20 @@ def device_profile(fn, reps: int):
                       and not getattr(e, "is_user_annotation", False)),
                      reverse=True)
     return sum(k[0] for k in kernels), kernels
+
+
+def profiled_kernels_ms(fn, reps: int, names):
+    """Device ms per rep of each kernel in ``names`` over ``reps`` runs of
+    ``fn`` under torch.profiler. The profiler has been seen to return a
+    window's trace without the kernels that ran in it; such a window is
+    profiled again, once, and the retry logged. A second such trace
+    raises."""
+    _, kernels = device_profile(fn, reps)
+    if not all(any(n in key for _, _, key in kernels) for n in names):
+        log(f"profiler trace lacks one of {names} ({len(kernels)} kernels "
+            f"in it); profiling again")
+        _, kernels = device_profile(fn, reps)
+    return tuple(kernel_ms(kernels, n) for n in names)
 
 
 def kernel_ms(kernels, name: str) -> float:
@@ -360,9 +395,8 @@ def check_bwd(attention, gen):
             return attention.flash_attention_bwd(q, k, v, o, lse, do, causal)
 
         row["bwd_ms"] = time_ms(bwd, 10)
-        _, kernels = device_profile(bwd, 5)
-        row["dkdv_ms"] = kernel_ms(kernels, "flash_bwd_dkdv_kernel")
-        row["dq_ms"] = kernel_ms(kernels, "flash_bwd_dq_kernel")
+        row["dkdv_ms"], row["dq_ms"] = profiled_kernels_ms(
+            bwd, 5, ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"))
         row["plain_ms"] = time_ms(lambda: attention.flash_attention_bwd_plain(
             q, k, v, o, lse, do, causal=causal), 2)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -411,6 +445,139 @@ def check_bwd(attention, gen):
     log(f"bwd_check fp32 L=200 D=64 GQA, strided q and dO: max_abs_err dq, "
         f"dk, dv = {errs}, rule {FP32_GRAD_RULE}")
     return rows
+
+
+# The stats kernel's outputs are fp32 on both sides, from the same inputs,
+# with sums taken in another order: its o and l are held to
+# A * max(1, max|want|) + R * |want| with A = R = 1e-4 (the scores differ
+# by a few fp32 steps, which exp carries into each term; the floor of 1 is
+# the scale of a single term, for outputs that are all 0), and its m, a
+# row max of scores of magnitude up to ~30, to 1e-4 absolute.
+STATS_RULE = (1e-4, 1e-4)
+STATS_M_TOL = 1e-4
+# The ring shard of the main path: LLAMA3_1B at [1, 8192] over sp = 4.
+STATS_SHAPE = (1, 2048, 2048, 32, 8, 64)  # B, Lq, Lk, H, Hkv, D
+
+
+def stats_bound(q, k, v, visible):
+    """Least time for the stats step on these inputs: the bytes it must
+    move at the card's memory rate, against 4 D operations for each
+    visible (query, key) pair of each query head at its bf16 peak. It must
+    read visible (its distinct elements: a stride-0 axis is one), write o
+    (fp32), m and l, read the q rows that see a key, and read the K/V rows
+    up to the largest count among their kv head's rows; a pattern with
+    nothing visible reads no q, K or V."""
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    vis = visible.expand(B, H, Lq).clamp(0, Lk)
+    q_rows = int((vis > 0).sum())
+    kv_rows = int(vis.reshape(B, Hkv, -1).amax(dim=-1).sum())
+    vis_elems = math.prod(n for n, st in zip(visible.shape, visible.stride())
+                          if st)
+    nbytes = (q_rows * D * q.element_size()
+              + kv_rows * D * (k.element_size() + v.element_size())
+              + 4 * vis_elems + 4 * B * Lq * H * D + 8 * B * H * Lq)
+    return bound(nbytes, 4 * D * float(vis.sum()))
+
+
+def hold_stats(attention, got, want, visible, where):
+    """The kernel's (o, m, l) against the plain version's; rows that see
+    no key must carry m == NEG_INF (and o = l = 0). Returns the max abs
+    errors of o, m and l."""
+    (go, gm, gl), (wo, wm, wl) = got, want
+    a, r = STATS_RULE
+    err_o = hold(go, wo, a * max(1.0, float(wo.abs().max())), r,
+                 f"o {where}")[0]
+    err_l = hold(gl, wl, a * max(1.0, float(wl.abs().max())), r,
+                 f"l {where}")[0]
+    err_m = hold(gm, wm, STATS_M_TOL, 0.0, f"m {where}")[0]
+    dark = visible.expand(gm.shape) <= 0
+    if dark.any() and not (bool((gm[dark] == attention.NEG_INF).all())
+                           and not gl[dark].any()
+                           and not go.transpose(1, 2)[dark].any()):
+        raise AssertionError(f"{where}: a row that sees no key does not "
+                             f"give m == NEG_INF, l == 0, o == 0")
+    return err_o, err_m, err_l
+
+
+def check_stats(attention, gen):
+    """Phase 9: the stats kernel against its plain version on the same
+    bf16 inputs at the ring shard shape of the main path, for the visible
+    patterns a causal ring gives (every key, the diagonal block, none)
+    and a ragged one; then D = 128 with Lq != Lk, and fp32 with a stride-0
+    visible and a strided q. Returns a row per bf16 case."""
+    B, Lq, Lk, H, Hkv, D = STATS_SHAPE
+    q = torch.randn(B, Lq, H, D, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, Lk, Hkv, D, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, Lk, Hkv, D, generator=gen, device="cuda").bfloat16()
+    row_of = {  # the ring's per-row counts, broadcast over B and H
+        "all": torch.full((Lq,), Lk, device="cuda"),
+        "diagonal": torch.arange(1, Lq + 1, device="cuda"),
+        "none": torch.zeros(Lq, device="cuda"),
+    }
+    patterns = {name: r.int()[None, None].expand(B, H, Lq)
+                for name, r in row_of.items()}
+    patterns["ragged"] = torch.randint(0, Lk + 1, (B, H, Lq), generator=gen,
+                                       device="cuda", dtype=torch.int32)
+    rows = []
+    for name, vis in patterns.items():
+        rows.append(_stats_case(attention, q, k, v, vis, name))
+    # D = 128 (Llama-3-8B heads), Lq != Lk and a ragged tile edge: the
+    # last 1000 queries of 2048 keys under a causal mask.
+    q2 = torch.randn(1, 1000, 32, 128, generator=gen, device="cuda").bfloat16()
+    k2, v2 = (torch.randn(1, 2048, 8, 128, generator=gen,
+                          device="cuda").bfloat16() for _ in range(2))
+    vis2 = (torch.arange(1000, device="cuda") + 1049).int()[None, None] \
+        .expand(1, 32, 1000)
+    rows.append(_stats_case(attention, q2, k2, v2, vis2, "causal offset"))
+    # fp32: q a slice of a wider buffer, visible a ragged row (its first
+    # rows seeing nothing) broadcast with stride 0 over B and H.
+    q3 = torch.randn(2, 200, 4, 128, generator=gen, device="cuda")[..., :64]
+    k3, v3 = (torch.randn(2, 300, 2, 64, generator=gen, device="cuda")
+              for _ in range(2))
+    vis_row = torch.randint(0, 301, (200,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    vis_row[:7] = 0
+    vis3 = vis_row[None, None].expand(2, 4, 200)
+    errs = hold_stats(attention, attention.flash_attention_stats(
+        q3, k3, v3, vis3), attention.flash_attention_stats_plain(
+        q3, k3, v3, vis3), vis3, "fp32 strided")
+    log(f"stats_check fp32 B=2 Lq=200 Lk=300 D=64 GQA, strided q, stride-0 "
+        f"visible: max_abs_err o, m, l = {list(errs)}")
+    return rows
+
+
+def _stats_case(attention, q, k, v, vis, name):
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    where = f"flash_stats {name} B={B} Lq={Lq} Lk={Lk} D={D}"
+    got = attention.flash_attention_stats(q, k, v, vis)
+    want = attention.flash_attention_stats_plain(q, k, v, vis)
+    torch.cuda.synchronize()
+    err_o, err_m, err_l = hold_stats(attention, got, want, vis, where)
+    ms = time_ms(lambda: attention.flash_attention_stats(q, k, v, vis), 10)
+    plain_ms = time_ms(
+        lambda: attention.flash_attention_stats_plain(q, k, v, vis), 2)
+    bound_ms, bound_by = stats_bound(q, k, v, vis)
+    library_ms = None
+    if name in ("all", "diagonal"):
+        # A yardstick only, never called by the port: torch's flash
+        # attention with its row log-sum-exp, the same function in another
+        # form (normalised o and lse = m + log l), on K/V repeated to the
+        # query heads (it takes no GQA).
+        qt = q.transpose(1, 2)
+        kt, vt = (t.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  for t in (k, v))
+        library_ms = time_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, name == "diagonal"), 10)
+    row = dict(pattern=name, B=B, Lq=Lq, Lk=Lk, H=H, Hkv=Hkv, D=D,
+               max_abs_err=max(err_o, err_l), o_err=err_o, m_err=err_m,
+               l_err=err_l, rule=STATS_RULE, m_tol=STATS_M_TOL, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    log("stats_check", json.dumps(row))
+    return row
 
 
 def check_small_training(models, gen):
@@ -487,12 +654,105 @@ def check_small_training(models, gen):
         f"gradients were {grads} (card, CPU)")
 
 
+def check_small_sp(models, parallel, attention, gen):
+    """Phase 10: a small fp32 model's loss and every gradient through ring
+    attention (sp = 4 on one device, the flash block step) on the card,
+    against the same on the CPU through the plain versions, and against
+    the card's flash_attention path."""
+    cfg = models.LlamaConfig(vocab_size=512, d_model=256, n_layers=2,
+                             n_heads=4, n_kv_heads=2, d_ff=512,
+                             dtype=torch.float32)
+    params = models.init_params(cfg, gen, device="cuda")
+    cpu_params = _host_copy(params)
+    leaves, cpu_leaves = (models.trainable(params),
+                          models.trainable(cpu_params))
+    tokens = torch.randint(0, 512, (2, 128), generator=gen, device="cuda")
+    spec = parallel.MeshSpec(sp=4)
+    runs = {}
+    for name, tree, ls, tok, attn in (
+            ("ring card", params, leaves, tokens, parallel.make_ring_attention(
+                parallel.make_mesh(spec, device="cuda"), block_impl="flash")),
+            ("ring host", cpu_params, cpu_leaves, tokens.cpu(),
+             parallel.make_ring_attention(
+                 parallel.make_mesh(spec, device="cpu"), block_impl="flash")),
+            ("flash card", params, leaves, tokens, None)):
+        for t in ls:
+            t.grad = None
+        before = attention.stats_launches
+        loss = models.loss_fn(tree, {"tokens": tok}, cfg, remat=False,
+                              attn_impl=attn)
+        loss.backward()
+        runs[name] = (loss.item(), [t.grad.cpu() for t in ls],
+                      attention.stats_launches - before)
+    launched = [runs[n][2] for n in runs]
+    if launched != [cfg.n_layers * 16, 0, 0]:
+        raise AssertionError(f"stats kernel launches {launched}, expected "
+                             f"{cfg.n_layers * 16} on the card's ring only")
+    ref_loss, ref_grads, _ = runs["ring card"]
+    for other in ("ring host", "flash card"):
+        loss, grads, _ = runs[other]
+        if not abs(loss - ref_loss) <= 1e-5 * abs(loss):
+            raise AssertionError(f"sp ring loss {ref_loss} != {other} {loss}")
+        worst = max(hold_grad(g, w, FP32_GRAD_RULE,
+                              f"sp ring grad {i} vs {other}")[1]
+                    for i, (g, w) in enumerate(zip(ref_grads, grads)))
+        log(f"small_model fp32 sp=4 ring (flash block, card): loss "
+            f"{ref_loss} ({other} {loss}), {len(grads)} gradients, worst "
+            f"element {worst} of rule {FP32_GRAD_RULE}")
+
+
+def ring_layer_times(attention, parallel, gen):
+    """Phase 11's attention alone, at one layer's shape ([1, 8192], 32/8
+    heads, D 64, bf16, causal): the sp = 4 ring's output and dq, dk, dv
+    held per element to flash_attention's (K2) on the same inputs, then
+    the ring's forward (16 stats launches and the merges) and its plain
+    backward timed beside flash_attention's forward and backward."""
+    q = torch.randn(1, 8192, 32, 64, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(1, 8192, 8, 64, generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    do = torch.randn_like(q)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    ring = parallel.make_ring_attention(
+        parallel.make_mesh(parallel.MeshSpec(sp=4), device="cuda"),
+        block_impl="flash")
+    out, res = {}, {}
+    for name, fn in (("ring", ring), ("flash_attention", lambda *a:
+                                      attention.flash_attention(*a, True))):
+        o = fn(q, k, v)
+        res[name] = (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+        with torch.no_grad():
+            fwd = time_ms(lambda: fn(q, k, v), 3)
+        both = time_ms(lambda: torch.autograd.grad(fn(q, k, v), (q, k, v),
+                                                   do), 3)
+        out[name] = dict(fwd_ms=fwd, bwd_ms=both - fwd)
+    # Both sides sum in fp32 from the same bf16 inputs and round once to
+    # bf16, as in phases 2 and 6: the output by the forward's rule, the
+    # gradients by the backward's.
+    (ro, *rg), (fo, *fg) = res["ring"], res["flash_attention"]
+    shares = {"o": hold(ro, fo, BF16_ATOL, BF16_RTOL,
+                        "ring o vs flash_attention")[1]}
+    for name, g, w in zip(("dq", "dk", "dv"), rg, fg):
+        shares[name] = hold_grad(g, w, BF16_GRAD_RULE,
+                                 f"ring {name} vs flash_attention")[1]
+    out["worst_share_of_limit"] = shares
+    log(f"attention per layer [1, 8192] causal bf16, ring against "
+        f"flash_attention within (ATOL {BF16_ATOL}, RTOL {BF16_RTOL}) for o "
+        f"and {BF16_GRAD_RULE} for dq, dk, dv: {json.dumps(out)}")
+    return out
+
+
+COUNTERS = ("launches", "bwd_launches", "stats_launches")
+
+
 def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
-              chunked):
-    """Phase 8, one run of the training main path from weights drawn from
-    ``seed``: ``warm`` + ``timed`` AdamW steps on the same tokens, with both
-    launch counts reset just before and read just after, then one profiled
-    step. The weights and optimizer are freed on return."""
+              chunked, expect, name, attn_impl=None, profile=True):
+    """One run of a training main path from weights drawn from ``seed``:
+    ``warm`` + ``timed`` AdamW steps on the same tokens through
+    ``attn_impl`` (``flash_attention`` unless given), with every launch
+    count reset just before and read just after and held to ``expect``
+    (counter name to launches), then, with ``profile``, one profiled step.
+    The weights and optimizer are freed on return."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = models.init_params(cfg, gen, device="cuda")
     opt = torch.optim.AdamW(models.trainable(params), lr=LR,
@@ -502,7 +762,7 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
     def step():
         opt.zero_grad(set_to_none=True)
         loss = models.loss_fn(params, batch, cfg, remat=remat,
-                              chunked_vocab=chunked)
+                              chunked_vocab=chunked, attn_impl=attn_impl)
         loss.backward()
         opt.step()
         return loss.detach()
@@ -510,49 +770,46 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts reset just before, read just after
-    attention.launches = 0
-    attention.bwd_launches = 0
+    for c in COUNTERS:
+        setattr(attention, c, 0)
+    t0 = time.perf_counter()
     losses = [step() for _ in range(warm)]
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     losses += [step() for _ in range(timed)]
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / timed
-    fwd, bwd = attention.launches, attention.bwd_launches
+    step_s = (time.perf_counter() - (t1 if timed else t0)) / (timed or warm)
+    counts = {c: getattr(attention, c) for c in COUNTERS}
     # ---- end of the main path
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
-    steps = warm + timed
-    passes = steps * (2 if remat else 1)  # remat runs each forward again
-    name = f"remat={remat} chunked_vocab={chunked}"
     if not all(math.isfinite(x) for x in losses) or \
-            not losses[-1] < losses[0]:
+            (len(losses) > 1 and not losses[-1] < losses[0]):
         raise AssertionError(f"{name}: losses {losses} not finite and "
                              f"falling")
-    if fwd != cfg.n_layers * passes or bwd != cfg.n_layers * steps:
-        raise AssertionError(f"{name}: flash_fwd launched {fwd} times "
-                             f"(expected {cfg.n_layers * passes}), "
-                             f"flash_bwd {bwd} (expected "
-                             f"{cfg.n_layers * steps})")
+    if counts != {c: expect.get(c, 0) for c in COUNTERS}:
+        raise AssertionError(f"{name}: launches {counts}, expected {expect}")
     B, L = tokens.shape
     tok_s = B * L / step_s
     mfu = models.flops_per_token(cfg, L) * tok_s / H100_BF16_FLOPS
-    busy_ms, kernels = device_profile(step, 1)
     log(f"train LLAMA3_1B {name} [{B}, {L}]: losses {losses}; "
-        f"{step_s * 1e3} ms/step over {timed} timed steps = {tok_s} "
-        f"tokens/s, MFU {mfu}; peak memory {peak / 2**30} GiB; "
-        f"launches flash_fwd {fwd} = {cfg.n_layers} x {passes} forward "
-        f"passes, flash_bwd {bwd} = {cfg.n_layers} x {steps} steps")
-    log(f"train profile {name}: the device ran {busy_ms} ms in one step, "
-        f"{busy_ms / 1e3 / step_s} of the unprofiled step, in "
-        f"{sum(n for _, n, _ in kernels)} kernels")
-    log_top(kernels)
+        f"{step_s * 1e3} ms/step over {timed or warm} "
+        f"{'timed' if timed else 'untimed-warm'} steps = {tok_s} tokens/s, "
+        f"MFU {mfu}; peak memory {peak / 2**30} GiB; launches {counts} "
+        f"over {warm + timed} steps")
+    out = dict(losses=losses, step_ms=step_s * 1e3, tokens_per_s=tok_s,
+               mfu=mfu, peak_gib=peak / 2**30, **counts)
+    if profile:
+        busy_ms, kernels = device_profile(step, 1)
+        log(f"train profile {name}: the device ran {busy_ms} ms in one "
+            f"step, {busy_ms / 1e3 / step_s} of the unprofiled step, in "
+            f"{sum(n for _, n, _ in kernels)} kernels")
+        log_top(kernels)
+        out["busy_share"] = busy_ms / 1e3 / step_s
     del params, opt, step
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(losses=losses, step_ms=step_s * 1e3, tokens_per_s=tok_s,
-                mfu=mfu, peak_gib=peak / 2**30, fwd_launches=fwd,
-                bwd_launches=bwd, busy_share=busy_ms / 1e3 / step_s)
+    return out
 
 
 async def serve_requests(server, requests):
@@ -568,7 +825,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from ray_tpu_torch import models
+    from ray_tpu_torch import models, parallel
     from ray_tpu_torch.ops import attention
     from ray_tpu_torch.serve import LLMServer
     from ray_tpu_torch.util import events
@@ -670,10 +927,17 @@ def main() -> int:
     log(f"LLAMA3_1B: {cfg.param_count()} params, d_model {cfg.d_model}, "
         f"{cfg.n_layers} layers, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
         f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+    # remat runs each forward twice
     dense = train_run(models, attention, cfg, tokens, seed=7, warm=1,
-                      timed=5, remat=False, chunked=0)
+                      timed=5, remat=False, chunked=0,
+                      expect={"launches": cfg.n_layers * 6,
+                              "bwd_launches": cfg.n_layers * 6},
+                      name="remat=False chunked_vocab=0")
     remat = train_run(models, attention, cfg, tokens, seed=7, warm=1,
-                      timed=2, remat=True, chunked=16384)
+                      timed=2, remat=True, chunked=16384,
+                      expect={"launches": cfg.n_layers * 6,
+                              "bwd_launches": cfg.n_layers * 3},
+                      name="remat=True chunked_vocab=16384")
     # Both runs start from the same weights: the first losses differ only
     # by where the logits are rounded to bf16 (the dense head's output
     # against the chunked loss's fp32 products), a few bf16 steps (2**-8)
@@ -684,21 +948,61 @@ def main() -> int:
                              f"remat + chunked {first[1]}")
     log(f"first loss: dense {first[0]}, remat + chunked {first[1]}")
 
+    stats_rows = check_stats(attention, gen)
+    check_small_sp(models, parallel, attention, gen)
+
+    # Phase 11: sequence-parallel training, LLAMA3_1B on phase 8's 8192
+    # tokens as one [1, 8192] sequence, sp = 4 ranks in lockstep on this
+    # card; the ring's stats kernel runs n_layers x sp^2 times a forward.
+    tokens = tokens.reshape(1, -1)
+    mesh = parallel.make_mesh(parallel.MeshSpec(sp=4), device="cuda")
+    n = mesh.shape["sp"]
+    ring = train_run(models, attention, cfg, tokens, seed=7, warm=1,
+                     timed=3, remat=False, chunked=0,
+                     expect={"stats_launches": cfg.n_layers * n * n * 4},
+                     name="sp=4 ring (flash)",
+                     attn_impl=parallel.make_ring_attention(
+                         mesh, block_impl="flash"))
+    k2 = train_run(models, attention, cfg, tokens, seed=7, warm=1, timed=2,
+                   remat=False, chunked=0,
+                   expect={"launches": cfg.n_layers * 3,
+                           "bwd_launches": cfg.n_layers * 3},
+                   name="flash_attention")
+    uly = train_run(models, attention, cfg, tokens, seed=7, warm=1, timed=2,
+                    remat=False, chunked=0,
+                    expect={"launches": cfg.n_layers * n * 3,
+                            "bwd_launches": cfg.n_layers * n * 3},
+                    name="sp=4 Ulysses",
+                    attn_impl=parallel.make_ulysses_attention(mesh))
+    # The same weights and tokens: the first losses differ only by the
+    # attention's order of sums and where it rounds to bf16, a few bf16
+    # steps of the attention's output, far below 1e-3 of a loss near 12.
+    first = {"ring": ring["losses"][0], "flash_attention": k2["losses"][0],
+             "ulysses": uly["losses"][0]}
+    if not all(abs(x - first["ring"]) <= 1e-3 * abs(first["ring"])
+               for x in first.values()):
+        raise AssertionError(f"first losses differ: {first}")
+    log(f"first loss [1, 8192]: {first}")
+    ring_layer_times(attention, parallel, gen)
+
     main = next(r for r in rows if r["L"] == 1024)
     train = bwd_rows[0]
     train_shape = "B=4 L=2048 H=32 Hkv=8 D=64 causal bf16"
-    bwd_launches = dense["bwd_launches"] + remat["bwd_launches"]
+    bwd_launches = (dense["bwd_launches"] + remat["bwd_launches"]
+                    + k2["bwd_launches"] + uly["bwd_launches"])
     mosaic = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:109",
         "also_replaces": "ray_tpu/ops/attention.py:231 (forward)",
-        "launches": serve_launches + dense["fwd_launches"]
-        + remat["fwd_launches"],
+        "launches": serve_launches + dense["launches"] + remat["launches"]
+        + k2["launches"] + uly["launches"],
         "launches_by_path": {"serve": serve_launches,
-                             "train_dense": dense["fwd_launches"],
-                             "train_remat_chunked": remat["fwd_launches"]},
+                             "train_dense": dense["launches"],
+                             "train_remat_chunked": remat["launches"],
+                             "train_8k_flash_attention": k2["launches"],
+                             "train_8k_ulysses": uly["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -724,7 +1028,10 @@ def main() -> int:
             "launches": bwd_launches,
             "launches_by_path": {"train_dense": dense["bwd_launches"],
                                  "train_remat_chunked":
-                                     remat["bwd_launches"]},
+                                     remat["bwd_launches"],
+                                 "train_8k_flash_attention":
+                                     k2["bwd_launches"],
+                                 "train_8k_ulysses": uly["bwd_launches"]},
             "max_abs_err": max(r[g]["max_abs_err"] for r in bwd_rows
                                for g in (("dk", "dv") if name == "dkdv"
                                          else ("dq",))),
@@ -738,6 +1045,26 @@ def main() -> int:
             "backward_bound_ms": train["bound_ms"],
             "shape": train_shape,
         })
+    full = stats_rows[0]  # every key visible, at the ring shard shape
+    kernels.append({
+        "name": "flash_stats", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/flash_stats.cu",
+        "replaces": "ray_tpu/ops/attention.py:314",
+        "replaces_detail": "_flash_stats_bhld -> _flash_stats_kernel "
+                           "(kernel :261, pallas_call :328)",
+        "launches": ring["stats_launches"],
+        "launches_by_path": {"train_8k_sp_ring": ring["stats_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in stats_rows),
+        "ms": full["ms"], "plain_ms": full["plain_ms"],
+        "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+        "library_ms": full["library_ms"],
+        "library": "torch.ops.aten._scaled_dot_product_flash_attention "
+                   "(normalised o and lse) on K/V repeated to 32 heads",
+        "shape": "B=1 Lq=Lk=2048 H=32 Hkv=8 D=64 bf16, every key visible",
+        "patterns": {r["pattern"]: {f: r[f] for f in (
+            "Lq", "Lk", "D", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")} for r in stats_rows},
+    })
     if not all(math.isfinite(k[f]) for k in kernels
                for f in ("ms", "plain_ms", "library_ms", "bound_ms")):
         raise AssertionError(f"non-finite timing in {kernels}")

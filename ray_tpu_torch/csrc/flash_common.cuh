@@ -1,6 +1,6 @@
-// Helpers shared by flash_fwd.cu and flash_bwd.cu: element conversion,
-// the stride record both kernels read [B, L, H, D] tensors through, and
-// the shared-memory opt-in.
+// Helpers shared by flash_fwd.cu, flash_bwd.cu and flash_stats.cu: element
+// conversion, the stride record the kernels read [B, L, H, D] tensors
+// through, and the shared-memory opt-in.
 
 #pragma once
 

@@ -133,10 +133,12 @@ def _cache_attention(q, k_all, v_all, pos, cfg: LlamaConfig):
 
 
 def _attention_block(layer, x, cos, sin, cfg: LlamaConfig, kv_cache=None,
-                     positions=None):
+                     positions=None, attn_impl=None):
     """Attention sublayer. ``kv_cache=(k_all, v_all, start)`` writes the new
     K/V in place at ``start`` (an int, or a [B] tensor of per-row offsets)
-    and returns ``(out, (k_all, v_all, start + L))``."""
+    and returns ``(out, (k_all, v_all, start + L))``. Without a cache the
+    attention is ``attn_impl(q, k, v, causal=True)``, ``flash_attention``
+    unless given."""
     B, L, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
     q = mm(h, layer["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
@@ -168,7 +170,7 @@ def _attention_block(layer, x, cos, sin, cfg: LlamaConfig, kv_cache=None,
         else:
             o = _cache_attention(q, k_all, v_all, pos, cfg)
     else:
-        o = flash_attention(q, k, v, causal=True)
+        o = (attn_impl or flash_attention)(q, k, v, causal=True)
     o = o.reshape(B, L, cfg.n_heads * cfg.head_dim)
     return mm(o, layer["wo"]), new_cache
 
@@ -184,34 +186,46 @@ def _head(params, cfg: LlamaConfig):
     return params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _layer(x, layer, cos, sin, cfg: LlamaConfig):
-    a, _ = _attention_block(layer, x, cos, sin, cfg)
+def _layer(x, layer, cos, sin, cfg: LlamaConfig, attn_impl):
+    a, _ = _attention_block(layer, x, cos, sin, cfg, attn_impl=attn_impl)
     x = x + a
     return x + _mlp_block(layer, x, cfg)
 
 
 def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
-                   cfg: LlamaConfig, remat: bool = True) -> torch.Tensor:
+                   cfg: LlamaConfig, remat: bool = True, attn_impl=None,
+                   seq_offset: int = 0) -> torch.Tensor:
     """Final-norm hidden states [B, L, D] (no lm_head projection).
 
     ``remat`` recomputes each layer's activations in the backward pass
-    instead of keeping them; it has no effect where no gradient is taken."""
-    cos, sin = rope_frequencies(cfg.head_dim, tokens.shape[1],
+    instead of keeping them; it has no effect where no gradient is taken.
+    ``attn_impl(q, k, v, causal=True)`` is the attention
+    (``flash_attention`` unless given; a ring or Ulysses attention from
+    ``parallel``). ``seq_offset`` is the global position of ``tokens``'
+    first column: a rank that holds one sequence shard passes where its
+    shard starts, so RoPE sees global positions, as JAX's one global
+    program does."""
+    L = tokens.shape[1]
+    cos, sin = rope_frequencies(cfg.head_dim, seq_offset + L,
                                 cfg.rope_theta, device=tokens.device)
+    cos, sin = cos[seq_offset:], sin[seq_offset:]
     x = params["embedding"][tokens.long()].to(cfg.dtype)
     for layer in params["layers"]:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_layer, x, layer, cos, sin, cfg,
+            x = checkpoint(_layer, x, layer, cos, sin, cfg, attn_impl,
                            use_reentrant=False)
         else:
-            x = _layer(x, layer, cos, sin, cfg)
+            x = _layer(x, layer, cos, sin, cfg, attn_impl)
     return rms_norm(x, params["norm"], cfg.norm_eps)
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
-            remat: bool = True) -> torch.Tensor:
-    """Logits for a token batch. tokens: [B, L] int -> [B, L, V]."""
-    x = forward_hidden(params, tokens, cfg, remat=remat)
+            remat: bool = True, attn_impl=None,
+            seq_offset: int = 0) -> torch.Tensor:
+    """Logits for a token batch. tokens: [B, L] int -> [B, L, V]; the other
+    arguments as ``forward_hidden``'s."""
+    x = forward_hidden(params, tokens, cfg, remat=remat, attn_impl=attn_impl,
+                       seq_offset=seq_offset)
     return mm(x, _head(params, cfg))
 
 
@@ -223,19 +237,22 @@ def next_token_targets(tokens: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             cfg: LlamaConfig, remat: bool = True,
-            chunked_vocab: int = 0) -> torch.Tensor:
+            chunked_vocab: int = 0, attn_impl=None) -> torch.Tensor:
     """Mean next-token loss. batch: {"tokens": [B, L]} or {"tokens",
     "targets"}.
 
     ``chunked_vocab > 0`` streams the vocab softmax in chunks of that size
     (``ops/chunked_xent.py``), so the [B, L, V] fp32 logits are never
-    materialised."""
+    materialised. ``attn_impl`` as ``forward_hidden``'s. Over a
+    process-group mesh each rank holds a shard, and the global mean is
+    ``parallel.sharded_loss_fn``."""
     tokens = batch["tokens"]
     targets = batch.get("targets")
     if targets is None:
         targets = next_token_targets(tokens)
     if chunked_vocab > 0:
-        x = forward_hidden(params, tokens, cfg, remat=remat)
+        x = forward_hidden(params, tokens, cfg, remat=remat,
+                           attn_impl=attn_impl)
         head = _head(params, cfg)
         if isinstance(head, Q8):
             # the chunked loss streams its own products from dense weights
@@ -243,7 +260,7 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
         B, L, D = x.shape
         return chunked_cross_entropy(x.reshape(B * L, D), head,
                                      targets.reshape(B * L), chunked_vocab)
-    logits = forward(params, tokens, cfg, remat=remat)
+    logits = forward(params, tokens, cfg, remat=remat, attn_impl=attn_impl)
     loss, _ = cross_entropy_loss(logits, targets)
     return loss
 

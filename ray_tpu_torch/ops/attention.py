@@ -9,10 +9,16 @@ Port of ``ray_tpu/ops/attention.py``:
     replace ``_flash_attention_bhld`` (``_flash_kernel``) and both halves
     of ``_tpu_flash`` (the Mosaic flash kernels); the source notes in the
     ``.cu`` files say what bounds them.
-  * ``flash_attention_plain`` and ``flash_attention_bwd_plain`` are the
-    same blockwise fp32 math in PyTorch. The CPU tests run them, and the
-    chip check holds the kernels against them; nothing on the CUDA path
-    calls them.
+  * ``flash_attention_stats`` is ring attention's block step: the
+    unnormalised fp32 output and the rows' max and sum, with a per-row
+    count of visible keys. For a CUDA tensor it launches
+    ``csrc/flash_stats.cu``, which replaces ``_flash_stats_bhld``
+    (``_flash_stats_kernel``); it defines no gradient (the ring's own
+    backward is in ``parallel/ring_attention.py``).
+  * ``flash_attention_plain``, ``flash_attention_bwd_plain`` and
+    ``flash_attention_stats_plain`` are the same blockwise fp32 math in
+    PyTorch. The CPU tests run them, and the chip check holds the kernels
+    against them; nothing on the CUDA path calls them.
   * ``dense_attention`` is the JAX package's oracle.
 
 Each kernel is built at its first CUDA use with ``nvcc`` into
@@ -39,8 +45,11 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 #: The kernel libraries, each built from ``csrc/<name>.cu``.
-KERNELS = ("flash_fwd", "flash_bwd")
+KERNELS = ("flash_fwd", "flash_bwd", "flash_stats")
 _HEAD_DIMS = (64, 128)
+#: The stats kernel's query and key tiles (``csrc/flash_stats.cu``), which
+#: its plain version follows.
+_STATS_BLOCK_Q, _STATS_BLOCK_K = 64, 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Forward kernel launches made by ``flash_attention``; a run that resets
@@ -49,6 +58,8 @@ launches = 0
 #: Backward calls that launched the kernels: each launches the dK/dV
 #: kernel and the dQ kernel once.
 bwd_launches = 0
+#: Launches of the stats kernel made by ``flash_attention_stats``.
+stats_launches = 0
 
 _libs: dict = {}
 _lib_lock = threading.Lock()
@@ -185,6 +196,50 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, visible: torch.Tensor,
+                                scale: Optional[float] = None):
+    """The stats kernel's math in PyTorch: per (query block, key block) an
+    fp32 online softmax over the keys ``col < visible[b, h, row]``, masked
+    probabilities set to 0, and each query block stopping at the largest
+    count among its rows. Returns ``(o, m, l)``: the unnormalised output,
+    fp32 [B, Lq, H, D], and the rows' max and sum, fp32 [B, H, Lq]. A row
+    that sees no key keeps m = NEG_INF, l = 0 and o = 0. Each kv head
+    serves its group of query heads (GQA) without being repeated."""
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    group = H // Hkv
+    # [B, Hkv, G, L, D]: query head h = hk * G + g reads kv head hk
+    qf = q.float().reshape(B, Lq, Hkv, group, D).permute(0, 2, 3, 1, 4) \
+        * scale
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    vis = visible.clamp(0, Lk).reshape(B, Hkv, group, Lq)
+    o = torch.zeros(B, Hkv, group, Lq, D, device=q.device)
+    m = torch.full((B, Hkv, group, Lq), NEG_INF, device=q.device)
+    l = torch.zeros(B, Hkv, group, Lq, device=q.device)
+    for q0 in range(0, Lq, _STATS_BLOCK_Q):
+        q1 = min(Lq, q0 + _STATS_BLOCK_Q)
+        seen_to = vis[..., q0:q1, None]
+        mb, lb, ob = m[..., q0:q1], l[..., q0:q1], o[..., q0:q1, :]
+        for k0 in range(0, int(seen_to.max()), _STATS_BLOCK_K):
+            k1 = min(Lk, k0 + _STATS_BLOCK_K)
+            s = qf[..., q0:q1, :] @ kf[..., k0:k1, :].transpose(-1, -2)
+            seen = torch.arange(k0, k1, device=q.device) < seen_to
+            s = torch.where(seen, s, NEG_INF)
+            m_new = torch.maximum(mb, s.amax(dim=-1))
+            p = torch.where(seen, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(mb - m_new)
+            lb = lb * alpha + p.sum(dim=-1)
+            ob = ob * alpha[..., None] + p @ vf[..., k0:k1, :]
+            mb = m_new
+        m[..., q0:q1], l[..., q0:q1], o[..., q0:q1, :] = mb, lb, ob
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, Lq, H, D)
+    return o, m.reshape(B, H, Lq), l.reshape(B, H, Lq)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, scale: Optional[float] = None):
     """The forward that a backward needs: ``(o, lse)``, with each row's
@@ -254,6 +309,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     return _launch(q, k, v, causal, float(scale))
+
+
+def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          visible: torch.Tensor,
+                          scale: Optional[float] = None):
+    """Ring attention's block step, [B, L, H, D] in (K/V may carry fewer
+    heads), ``(o, m, l)`` out: the unnormalised output, fp32
+    [B, Lq, H, D], and the rows' max and sum, fp32 [B, H, Lq].
+
+    ``visible`` is int32 [B, H, Lq]: key column ``c`` is seen by a row iff
+    ``c < visible[b, h, row]``; a broadcast view (stride 0) is read as it
+    is. A row that sees no key comes out with ``m == NEG_INF``, which a
+    ring merge multiplies away (``exp(NEG_INF - m_new) == 0``); here its
+    ``l`` and ``o`` are also 0. Lq and Lk may differ.
+
+    A CUDA tensor goes to the stats kernel; shapes, types or strides it
+    does not take raise. A CPU tensor runs the plain version. It defines
+    no gradient: the ring that calls it has its own backward."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        return _launch_stats(q, k, v, visible, float(scale))
+    return flash_attention_stats_plain(q, k, v, visible, scale=scale)
 
 
 def _check(q, k, v, causal):
@@ -345,6 +423,35 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
     return dq, dk, dv
 
 
+def _launch_stats(q, k, v, visible, scale: float):
+    """Run the stats kernel; returns ``(o, m, l)``."""
+    global stats_launches
+    _check(q, k, v, causal=False)
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    if visible.shape != (B, H, Lq) or visible.dtype != torch.int32 or \
+            visible.device != q.device:
+        raise ValueError(f"visible must be int32 [B, H, Lq] = {(B, H, Lq)} "
+                         f"on {q.device}, got {visible.dtype} "
+                         f"{tuple(visible.shape)} on {visible.device}")
+    lib = _load("flash_stats")
+    o = torch.empty((B, Lq, H, D), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ray_flash_stats(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), visible.data_ptr(),
+            o.data_ptr(), m.data_ptr(), l.data_ptr(), _DTYPE_CODES[q.dtype],
+            B, Lq, Lk, H, Hkv, D,
+            _strides(q, k, v, o, visible.transpose(1, 2)),  # [B, Lq, H]
+            scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_stats kernel launch failed with code {rc}")
+    stats_launches += 1
+    return o, m, l
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -390,6 +497,10 @@ _ARGTYPES = {
     "flash_bwd": ("ray_flash_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                      ctypes.c_int, ctypes.c_void_p]),
+    "flash_stats": ("ray_flash_stats", [ctypes.c_void_p] * 7
+                    + [ctypes.c_int] * 7
+                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                       ctypes.c_void_p]),
 }
 
 

@@ -243,10 +243,12 @@ def test_port_sources_import_no_jax_and_no_ray_tpu():
                 continue
             bad += [f"{path.name}: {n}" for n in names if _forbidden(n)]
     names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
-    # the training slice's loss and the code that builds and loads the
-    # .cu kernels are covered like the rest
+    # the training slice's loss, the code that builds and loads the .cu
+    # kernels and the sequence-parallel modules are covered like the rest
     assert {"ray_tpu_torch/ops/chunked_xent.py",
-            "ray_tpu_torch/ops/attention.py"} <= names
+            "ray_tpu_torch/ops/attention.py",
+            "ray_tpu_torch/parallel/ring_attention.py",
+            "ray_tpu_torch/parallel/ulysses.py"} <= names
     assert len(_port_sources()) > 10
     assert not bad, bad
 
@@ -257,8 +259,10 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch, ray_tpu_torch.ops, ray_tpu_torch.models\n"
         "import ray_tpu_torch.serve, ray_tpu_torch.util.events\n"
         "import ray_tpu_torch.ops.chunked_xent, ray_tpu_torch.models.convert\n"
+        "import ray_tpu_torch.parallel\n"
         "from ray_tpu_torch.ops import attention\n"
-        "assert attention.KERNELS == ('flash_fwd', 'flash_bwd')\n"
+        "assert attention.KERNELS == ('flash_fwd', 'flash_bwd', "
+        "'flash_stats')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{_FORBIDDEN!r}]\n"
         "assert not bad, bad\n")

@@ -1,0 +1,605 @@
+"""Parity of the PyTorch port's sequence-parallel slice with the JAX
+package, on the CPU in fp32: the stats kernel's plain version, the mesh
+spec, ring attention (dense and flash block steps) and Ulysses on a
+one-device mesh, the bytes their rotations and exchanges move, and, in one
+spawn of a 4-process gloo group, the same attentions over a process group,
+the collectives, and a small Llama's loss and synced gradients at sp=4 and
+dp=2 x sp=2.
+
+Inputs come from numpy with a seed, weights from the JAX ``init_params``
+through ``params_from_numpy``; JAX runs its ``shard_map`` versions on 4
+virtual CPU devices and its Pallas stats kernel in interpret mode, as
+``tests/test_parallel.py`` does. Both sides compute in fp32 and differ
+only in the order of their sums (blockwise against whole-block softmax,
+another merge order), so values are held at rtol 1e-5 and atol 1e-5 and
+gradients, which pass through more sums, at rtol 1e-4 and atol 2e-5.
+
+JAX is imported inside the tests only: the gloo children import this
+module again, and they must not load JAX.
+"""
+
+import importlib
+import os
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.models.convert import params_from_numpy, trainable
+from ray_tpu_torch.ops import attention as tattn
+from ray_tpu_torch.parallel import (MeshSpec, collectives, make_mesh,
+                                    make_ring_attention,
+                                    make_ulysses_attention, shard_batch)
+from ray_tpu_torch.parallel import mesh as tmesh
+from ray_tpu_torch.parallel import training as ttrain
+from ray_tpu_torch.parallel import ulysses as tuly
+
+# The package exports a function named ring_attention, which shadows the
+# module on attribute access.
+tring = importlib.import_module("ray_tpu_torch.parallel.ring_attention")
+
+CPU = "cpu"
+VALUE_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=2e-5)
+SP = 4
+WORLD = 4
+
+TCFG = dict(vocab_size=96, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+            d_ff=128, max_seq_len=64)
+LLAMA_TOKENS = (2, 32)          # B, L: 8 positions a shard at sp=4
+RING_SHAPE = (1, 64, 4, 16)     # B, L, H, D
+ULY_SHAPE = (2, 64, 8, 16)
+RING_CASES = [(2, True), (2, False), (1, True), (1, False)]  # kvh, causal
+ULY_KVH = (4, 2)                # aligned with sp=4, and the fallback
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Keep torch's CPU thread pool small: the suite runs files in
+    parallel workers, beside timing-sensitive tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _randn(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _attn_inputs(seed, shape, kvh):
+    B, L, H, D = shape
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, B, L, H, D), _randn(rng, B, L, kvh, D),
+            _randn(rng, B, L, kvh, D), _randn(rng, B, L, H, D))
+
+
+def _ring_inputs(kvh, causal):
+    return _attn_inputs(10 + 2 * kvh + causal, RING_SHAPE, kvh)
+
+
+def _uly_inputs(kvh):
+    return _attn_inputs(30 + kvh, ULY_SHAPE, kvh)
+
+
+def _llama_tokens():
+    return np.random.default_rng(5).integers(
+        0, TCFG["vocab_size"], LLAMA_TOKENS).astype(np.int32)
+
+
+def _flat(tree, prefix=""):
+    """A tree of dicts and lists as {"a.0.b": leaf}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def _jax_vjp(fn, q, k, v, do):
+    """JAX's output and (dq, dk, dv) for cotangent ``do``, jitted."""
+    import jax
+    import jax.numpy as jnp
+
+    def run(q, k, v, do):
+        out, vjp = jax.vjp(fn, q, k, v)
+        return out, vjp(do)
+
+    out, grads = jax.jit(run)(*map(jnp.asarray, (q, k, v, do)))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+_JAX_REFS = {}
+
+
+def _jax_ring(cpu_mesh8, impl, kvh, causal):
+    """JAX's shard_map ring on 4 CPU devices (cached for the module)."""
+    key = ("ring", impl, kvh, causal)
+    if key not in _JAX_REFS:
+        from ray_tpu.parallel import MeshSpec as JMeshSpec
+        from ray_tpu.parallel import make_mesh as jmake_mesh
+        from ray_tpu.parallel import make_ring_attention as jring
+
+        mesh = jmake_mesh(JMeshSpec(sp=SP), devices=cpu_mesh8[:SP])
+        ring = jring(mesh, causal=causal, batch_axes=("dp",),
+                     head_axis="tp", block_impl=impl)
+        _JAX_REFS[key] = _jax_vjp(ring, *_ring_inputs(kvh, causal))
+    return _JAX_REFS[key]
+
+
+def _jax_ulysses(cpu_mesh8, kvh):
+    key = ("ulysses", kvh)
+    if key not in _JAX_REFS:
+        from ray_tpu.parallel import MeshSpec as JMeshSpec
+        from ray_tpu.parallel import make_mesh as jmake_mesh
+        from ray_tpu.parallel import make_ulysses_attention as july
+
+        mesh = jmake_mesh(JMeshSpec(sp=SP), devices=cpu_mesh8[:SP])
+        uly = july(mesh, causal=True, batch_axes=("dp",))
+        _JAX_REFS[key] = _jax_vjp(uly, *_uly_inputs(kvh))
+    return _JAX_REFS[key]
+
+
+def _torch_vjp(fn, q, k, v, do):
+    q, k, v = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(do))
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _assert_vjp_close(got, want, tag):
+    np.testing.assert_allclose(got[0], want[0], **VALUE_TOL,
+                               err_msg=f"{tag} out")
+    for name, g, w in zip(("dq", "dk", "dv"), got[1], want[1]):
+        assert g.shape == w.shape, (tag, name)
+        np.testing.assert_allclose(g, w, **GRAD_TOL, err_msg=f"{tag} {name}")
+
+
+# ------------------------------------------------------- the stats kernel
+
+STATS_CASES = ["causal", "full", "ragged", "zero"]
+
+
+def _visible(pattern, B, H, Lq, Lk, rng):
+    if pattern == "causal":  # the diagonal block of a causal ring
+        row = np.arange(1, Lq + 1)
+    elif pattern == "full":
+        row = np.full(Lq, Lk)
+    elif pattern == "zero":
+        row = np.zeros(Lq)
+    else:  # per (b, h, row), past Lk too (read as Lk), some rows dark
+        return rng.integers(0, Lk + 5, (B, H, Lq)).astype(np.int32)
+    return np.broadcast_to(row, (B, H, Lq)).astype(np.int32)
+
+
+@pytest.mark.parametrize("pattern", STATS_CASES)
+def test_plain_stats_matches_jax_interpret_kernel(pattern):
+    """Against the Pallas stats kernel in interpret mode, with GQA and
+    Lq != Lk. A row that sees no key must carry m == NEG_INF on both
+    sides; JAX leaves its o and l undefined there (exp(NEG_INF - NEG_INF)
+    = 1 for every masked key), so o and l are compared on the rows that
+    see a key, and the port's are 0 on the others."""
+    import jax.numpy as jnp
+    from ray_tpu.ops import attention as jattn
+
+    B, Lq, Lk, H, Hkv, D = 2, 32, 48, 4, 2, 16
+    rng = np.random.default_rng(STATS_CASES.index(pattern))
+    q, k, v = (_randn(rng, B, Lq, H, D), _randn(rng, B, Lk, Hkv, D),
+               _randn(rng, B, Lk, Hkv, D))
+    vis = _visible(pattern, B, H, Lq, Lk, rng)
+    jo, jm, jl = jattn.flash_attention_stats(
+        *map(jnp.asarray, (q, k, v, vis)), block_q=16, block_k=16,
+        interpret=True)
+    to, tm, tl = tattn.flash_attention_stats(
+        *map(torch.from_numpy, (q, k, v)), torch.from_numpy(vis))
+    assert to.dtype == tm.dtype == tl.dtype == torch.float32
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), **VALUE_TOL)
+    seen = vis > 0
+    np.testing.assert_allclose(tl.numpy()[seen], np.asarray(jl)[seen],
+                               **VALUE_TOL)
+    o_seen = np.moveaxis(to.numpy(), 2, 1)[seen]        # [rows, D]
+    np.testing.assert_allclose(o_seen, np.moveaxis(np.asarray(jo), 2, 1)
+                               [seen], **VALUE_TOL)
+    dark = ~seen
+    assert (tm.numpy()[dark] == np.float32(tattn.NEG_INF)).all()
+    assert not tl.numpy()[dark].any()
+    assert not np.moveaxis(to.numpy(), 2, 1)[dark].any()
+
+
+def test_stats_normalise_to_dense_attention_and_take_strides():
+    """The composable contract (``test_flash_attention_stats_unit``):
+    o / l is causal attention, here from a strided q and a stride-0
+    visible; the plain version gives the same on contiguous copies."""
+    B, L, H, D = 2, 32, 2, 16
+    rng = np.random.default_rng(3)
+    wide = torch.from_numpy(_randn(rng, B, L, H, 2 * D))
+    q = wide[..., :D]                                    # strided head dim
+    k, v = (torch.from_numpy(_randn(rng, B, L, H, D)) for _ in range(2))
+    vis = torch.arange(1, L + 1, dtype=torch.int32)[None, None] \
+        .expand(B, H, L)
+    assert vis.stride()[:2] == (0, 0) and q.stride(-2) == 2 * D
+    o, m, l = tattn.flash_attention_stats(q, k, v, vis)
+    got = o / l.transpose(1, 2)[..., None]
+    want = tattn.dense_attention(q, k, v, causal=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **VALUE_TOL)
+    again = tattn.flash_attention_stats(q.contiguous(), k, v,
+                                        vis.contiguous())
+    for a, b in zip((o, m, l), again):
+        assert torch.equal(a, b)
+
+
+def test_cpu_stats_never_launch_the_kernel(monkeypatch):
+    monkeypatch.setattr(tattn, "stats_launches", 0)
+    monkeypatch.setattr(tattn, "_load",
+                        lambda name: pytest.fail("kernel load"))
+    mesh = make_mesh(MeshSpec(sp=SP), device=CPU)
+    q, k, v, _ = _ring_inputs(2, True)
+    make_ring_attention(mesh, block_impl="flash")(
+        *map(torch.from_numpy, (q, k, v)))
+    assert tattn.stats_launches == 0
+
+
+# ------------------------------------------------------------------ mesh
+
+MESH_STRINGS = ["dp=2,tp=4", "sp=4", "fsdp=-1,tp=2", "dp=2,sp=2,ep=2", "",
+                "bogus=2", "dp=-1,tp=-1", "dp=3"]
+
+
+@pytest.mark.parametrize("text", MESH_STRINGS)
+def test_mesh_spec_matches_jax(text):
+    """Parsing and resolving against 8 devices: the same sizes, or a
+    ValueError on both sides."""
+    from ray_tpu.parallel import mesh as jmesh
+
+    assert tmesh.AXES == jmesh.AXES
+    for n in (None, 8):
+        try:
+            want = jmesh.mesh_spec_from_string(text, n)
+        except ValueError:
+            with pytest.raises(ValueError):
+                tmesh.mesh_spec_from_string(text, n)
+            continue
+        got = tmesh.mesh_spec_from_string(text, n)
+        assert got.sizes() == want.sizes()
+        assert got.n_devices == want.n_devices
+
+
+def test_one_device_mesh_keeps_the_batch_whole():
+    mesh = make_mesh(MeshSpec(dp=2, sp=4), device=CPU)
+    assert not mesh.distributed and mesh.shape["sp"] == 4
+    assert tmesh.local_batch_size(mesh, 4) == 2
+    assert tmesh.data_axes(mesh) == ("dp",)
+    x = torch.arange(24).reshape(2, 12)
+    assert shard_batch(mesh, x) is x
+    with pytest.raises(ValueError, match="process groups"):
+        collectives.allreduce(x, mesh, "dp")
+    with pytest.raises(ValueError, match="-1"):
+        make_mesh(MeshSpec(sp=-1), device=CPU)
+
+
+# ------------------------------------------- attention on a one-device mesh
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+@pytest.mark.parametrize("kvh,causal", RING_CASES)
+def test_one_device_ring_matches_jax_shard_map(cpu_mesh8, impl, kvh,
+                                               causal):
+    """The sp=4 ranks in lockstep on one device against JAX's shard_map
+    ring over 4 devices with the same block step: outputs and dq/dk/dv,
+    GQA down to one kv head."""
+    mesh = make_mesh(MeshSpec(sp=SP), device=CPU)
+    ring = make_ring_attention(mesh, causal=causal, block_impl=impl)
+    got = _torch_vjp(ring, *_ring_inputs(kvh, causal))
+    _assert_vjp_close(got, _jax_ring(cpu_mesh8, impl, kvh, causal),
+                      f"{impl} kvh={kvh} causal={causal}")
+
+
+@pytest.mark.parametrize("kvh", ULY_KVH)
+def test_one_device_ulysses_matches_jax_shard_map(cpu_mesh8, kvh):
+    mesh = make_mesh(MeshSpec(sp=SP), device=CPU)
+    got = _torch_vjp(make_ulysses_attention(mesh, causal=True),
+                     *_uly_inputs(kvh))
+    _assert_vjp_close(got, _jax_ulysses(cpu_mesh8, kvh), f"kvh={kvh}")
+
+
+def test_ring_rotations_move_kv_heads_only(monkeypatch):
+    """The GQA bandwidth contract, counted at the seam: every K/V shard in
+    the forward, and every dK/dV shard in the flash backward, moves at the
+    kv-head count (repeat-before-rotate would inflate each by H/Hkv and
+    still give the right numbers)."""
+    calls = []
+    real = tring._ppermute
+
+    def spy(xs, mesh, axis):
+        calls.extend((tuple(x.shape), x.numel() * x.element_size())
+                     for x in xs)
+        return real(xs, mesh, axis)
+
+    monkeypatch.setattr(tring, "_ppermute", spy)
+    mesh = make_mesh(MeshSpec(sp=SP), device=CPU)
+    B, L, H, D = RING_SHAPE
+    kvh = 2
+    shard = (B, L // SP, kvh, D)
+    for impl in ("dense", "flash"):
+        calls.clear()
+        got = _torch_vjp(make_ring_attention(mesh, block_impl=impl),
+                         *_ring_inputs(kvh, True))
+        assert np.isfinite(got[0]).all()
+        # forward: k and v, 3 rotations each for SP ranks; the flash
+        # backward adds k and v (3 each) and dk and dv (4 each).
+        rotations = 2 * (SP - 1) + (2 * (SP - 1) + 2 * SP
+                                    if impl == "flash" else 0)
+        assert len(calls) == rotations * SP, (impl, len(calls))
+        assert all(s == shard and n == np.prod(shard) * 4
+                   for s, n in calls), calls
+
+
+def test_ulysses_exchanges_move_kv_heads_only(monkeypatch):
+    """K/V cross the exchange at their true head count when it divides by
+    sp: kv bytes are q bytes x Hkv / H."""
+    calls = []
+    real = tuly._all_to_all
+
+    def spy(xs, mesh, axis, *, split_axis, concat_axis):
+        calls.append((split_axis, sum(x.numel() * x.element_size()
+                                      for x in xs)))
+        return real(xs, mesh, axis, split_axis=split_axis,
+                    concat_axis=concat_axis)
+
+    monkeypatch.setattr(tuly, "_all_to_all", spy)
+    mesh = make_mesh(MeshSpec(sp=SP), device=CPU)
+    kvh = 4
+    q, k, v, _ = _uly_inputs(kvh)
+    make_ulysses_attention(mesh, causal=False)(
+        *map(torch.from_numpy, (q, k, v)))
+    fwd = [b for s, b in calls if s == 2]   # q, k, v seq -> heads
+    back = [b for s, b in calls if s == 1]  # out heads -> seq
+    assert len(fwd) == 3 and len(back) == 1, calls
+    H = ULY_SHAPE[2]
+    assert fwd[1] == fwd[2] == fwd[0] * kvh // H
+    assert back[0] == fwd[0]
+
+
+def test_llama_attn_impl_and_seq_offset_match_jax():
+    """``attn_impl`` replaces the attention as JAX's does (the ring gives
+    the flash path's logits), and a shard run at ``seq_offset`` gives the
+    rows the whole sequence gives when its attention sees only itself."""
+    import jax
+    import jax.numpy as jnp
+    from ray_tpu.models import llama as jllama
+
+    jcfg = jllama.LlamaConfig(**TCFG, dtype=jnp.float32)
+    tcfg = tllama.LlamaConfig(**TCFG, dtype=torch.float32)
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device=CPU)
+    tokens = _llama_tokens()
+    want = np.asarray(jllama.forward(jparams, jnp.asarray(tokens), jcfg))
+    mesh = make_mesh(MeshSpec(sp=SP), device=CPU)
+    with torch.no_grad():
+        got = tllama.forward(tparams, torch.from_numpy(tokens), tcfg,
+                             attn_impl=make_ring_attention(mesh))
+        np.testing.assert_allclose(got.numpy(), want, **VALUE_TOL)
+        # The last 8 positions alone, attending only among themselves,
+        # at their global positions: JAX's forward of the same tokens
+        # with an attention that sees only the last 8 keys.
+        tail = tllama.forward(tparams, torch.from_numpy(tokens[:, -8:]),
+                              tcfg, seq_offset=24)
+
+    def tail_attention(q, k, v, causal=True):
+        L, rep = q.shape[1], q.shape[2] // k.shape[2]
+        cols = jnp.arange(L)[None, :]
+        mask = (jnp.arange(L)[:, None] >= cols) & (cols >= L - 8)
+        k, v = (jnp.repeat(t, rep, axis=2) for t in (k, v))
+        s = jnp.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+        s = jnp.where(mask, s, -1e30)
+        return jnp.einsum("bhqk,bkhd->bqhd", jax.nn.softmax(s, -1), v)
+
+    want_tail = np.asarray(jllama.forward(jparams, jnp.asarray(tokens),
+                                          jcfg, attn_impl=tail_attention))
+    np.testing.assert_allclose(tail.numpy(), want_tail[:, -8:], **VALUE_TOL)
+
+
+# ------------------------------------------------- a 4-process gloo group
+
+def _child(rank, store, out_dir, inputs):
+    """One rank of the gloo group: every per-rank case, results to
+    ``out_dir/rank<r>.npz``."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, WORLD),
+                            rank=rank, world_size=WORLD)
+    try:
+        res = {}
+        mesh = make_mesh(MeshSpec(sp=SP), device=CPU)
+        assert mesh.coords["sp"] == rank and mesh.distributed
+        for (kvh, causal), arrays in inputs["ring"].items():
+            for impl in ("dense", "flash"):
+                fn = make_ring_attention(mesh, causal=causal,
+                                         block_impl=impl)
+                _shard_vjp(res, f"ring_{impl}_{kvh}_{causal}", fn, mesh,
+                           arrays)
+        for kvh, arrays in inputs["ulysses"].items():
+            _shard_vjp(res, f"ulysses_{kvh}", make_ulysses_attention(mesh),
+                       mesh, arrays)
+        _collectives(res, mesh, rank)
+        mesh22 = make_mesh(MeshSpec(dp=2, sp=2), device=CPU)
+        res["coords22"] = np.array([mesh22.coords["dp"],
+                                    mesh22.coords["sp"]])
+        total = collectives.allreduce(torch.tensor([rank + 1.0]), mesh22,
+                                      ("dp", "sp"))
+        res["allreduce22"] = total.numpy()
+        for name, m in (("sp4", mesh), ("dp2sp2", mesh22)):
+            _llama(res, name, m, inputs)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_vjp(res, tag, fn, mesh, arrays):
+    q, k, v, do = (shard_batch(mesh, torch.from_numpy(a)) for a in arrays)
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    res[f"{tag}_out"] = out.detach().numpy()
+    for name, g in zip(("dq", "dk", "dv"), grads):
+        res[f"{tag}_{name}"] = g.numpy()
+
+
+def _collectives(res, mesh, rank):
+    x = torch.arange(4.0) * (rank + 1)
+    for op in ("sum", "mean", "max", "min"):
+        res[f"allreduce_{op}"] = collectives.allreduce(x, mesh, "sp",
+                                                       op).numpy()
+    res["allgather"] = collectives.allgather(x, mesh, "sp").numpy()
+    res["allgather_stacked"] = collectives.allgather(
+        x, mesh, "sp", tiled=False, gather_axis=1).numpy()
+    res["reducescatter"] = collectives.reducescatter(
+        torch.arange(8.0) * (rank + 1), mesh, "sp").numpy()
+    res["broadcast"] = collectives.broadcast(x, mesh, "sp", root=2).numpy()
+    z = torch.arange(12.0).reshape(4, 3) + 100 * rank
+    res["alltoall"] = collectives.alltoall(z, mesh, "sp", split_axis=0,
+                                           concat_axis=1).numpy()
+    res["permute"] = collectives.permute(x, mesh, "sp", 1).numpy()
+    res["send_recv"] = collectives.send_recv(x, mesh, "sp",
+                                             [(0, 2), (1, 3)]).numpy()
+    res["index_size"] = np.array([collectives.axis_index(mesh, "sp"),
+                                  collectives.axis_size(mesh, "sp")])
+    assert torch.equal(x, torch.arange(4.0) * (rank + 1))  # left as it was
+
+
+def _llama(res, name, mesh, inputs):
+    cfg = tllama.LlamaConfig(**TCFG, dtype=torch.float32)
+    params = params_from_numpy(inputs["params"], device=CPU)
+    leaves = trainable(params)
+    share = ttrain.sharded_loss_fn(
+        params, torch.from_numpy(inputs["tokens"]), cfg, mesh,
+        attn_impl=make_ring_attention(mesh, block_impl="flash"))
+    share.backward()
+    ttrain.allreduce_grads(leaves, mesh)
+    res[f"{name}_loss"] = collectives.allreduce(
+        share.detach(), mesh, ttrain.SPLIT_AXES).numpy()
+    for key, leaf in _flat(params).items():
+        res[f"{name}_grad.{key}"] = leaf.grad.numpy()
+
+
+@pytest.fixture(scope="module")
+def gloo_results(tmp_path_factory):
+    """Spawn the group once; each rank's results as a dict."""
+    import jax
+    from ray_tpu.models import llama as jllama
+
+    jcfg = jllama.LlamaConfig(**TCFG, dtype=jax.numpy.float32)
+    inputs = {
+        "ring": {case: _ring_inputs(*case) for case in RING_CASES[:2]},
+        "ulysses": {kvh: _uly_inputs(kvh) for kvh in ULY_KVH},
+        "params": jax.tree_util.tree_map(
+            np.asarray, jllama.init_params(jcfg, jax.random.PRNGKey(1))),
+        "tokens": _llama_tokens(),
+    }
+    tmp = tmp_path_factory.mktemp("gloo")
+    mp.spawn(_child, args=(str(tmp / "store"), str(tmp), inputs),
+             nprocs=WORLD, join=True)
+    results = []
+    for r in range(WORLD):
+        with np.load(tmp / f"rank{r}.npz") as f:
+            results.append(dict(f))
+    return inputs, results
+
+
+def _joined(results, key):
+    """The ranks' shards of an sp=4 result, joined along the sequence."""
+    return np.concatenate([r[key] for r in results], axis=1)
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+@pytest.mark.parametrize("kvh,causal", RING_CASES[:2])
+def test_gloo_ring_matches_jax_shard_map(gloo_results, cpu_mesh8, impl, kvh,
+                                         causal):
+    _, results = gloo_results
+    tag = f"ring_{impl}_{kvh}_{causal}"
+    got = (_joined(results, f"{tag}_out"),
+           [_joined(results, f"{tag}_{g}") for g in ("dq", "dk", "dv")])
+    _assert_vjp_close(got, _jax_ring(cpu_mesh8, impl, kvh, causal), tag)
+
+
+@pytest.mark.parametrize("kvh", ULY_KVH)
+def test_gloo_ulysses_matches_jax_shard_map(gloo_results, cpu_mesh8, kvh):
+    _, results = gloo_results
+    tag = f"ulysses_{kvh}"
+    got = (_joined(results, f"{tag}_out"),
+           [_joined(results, f"{tag}_{g}") for g in ("dq", "dk", "dv")])
+    _assert_vjp_close(got, _jax_ulysses(cpu_mesh8, kvh), tag)
+
+
+def test_gloo_collectives(gloo_results):
+    """Each collective against its JAX meaning, per rank."""
+    _, results = gloo_results
+    xs = [np.arange(4.0) * (r + 1) for r in range(WORLD)]
+    zs = [np.arange(12.0).reshape(4, 3) + 100 * r for r in range(WORLD)]
+    want = {
+        "allreduce_sum": sum(xs), "allreduce_mean": sum(xs) / WORLD,
+        "allreduce_max": xs[-1], "allreduce_min": xs[0],
+        "allgather": np.concatenate(xs), "allgather_stacked":
+            np.stack(xs, axis=1),
+    }
+    for r, res in enumerate(results):
+        for key, w in want.items():
+            np.testing.assert_array_equal(res[key], w, err_msg=key)
+        np.testing.assert_array_equal(
+            res["reducescatter"], (np.arange(8.0) * 10)[2 * r:2 * r + 2])
+        np.testing.assert_array_equal(res["broadcast"], xs[2])
+        np.testing.assert_array_equal(
+            res["alltoall"], np.concatenate([z[r:r + 1] for z in zs], 1))
+        np.testing.assert_array_equal(res["permute"], xs[(r - 1) % WORLD])
+        np.testing.assert_array_equal(
+            res["send_recv"], xs[r - 2] if r >= 2 else np.zeros(4))
+        np.testing.assert_array_equal(res["index_size"], [r, WORLD])
+        # dp=2 x sp=2: JAX's axis order puts rank r at (r // 2, r % 2)
+        np.testing.assert_array_equal(res["coords22"], [r // 2, r % 2])
+        np.testing.assert_array_equal(res["allreduce22"], [10.0])
+
+
+@pytest.mark.parametrize("name,spec", [("sp4", dict(sp=4)),
+                                       ("dp2sp2", dict(dp=2, sp=2))])
+def test_gloo_llama_loss_and_synced_grads_match_jax(gloo_results, cpu_mesh8,
+                                                    name, spec):
+    """A small Llama over the group, the ring (flash block step) as its
+    attention: every rank's global loss and every summed gradient against
+    JAX's ``loss_fn`` and ``jax.grad`` with ``make_ring_attention`` on a
+    mesh of the same shape."""
+    import jax
+    import jax.numpy as jnp
+    from ray_tpu.models import llama as jllama
+    from ray_tpu.parallel import MeshSpec as JMeshSpec
+    from ray_tpu.parallel import make_mesh as jmake_mesh
+    from ray_tpu.parallel import make_ring_attention as jring
+
+    inputs, results = gloo_results
+    jcfg = jllama.LlamaConfig(**TCFG, dtype=jnp.float32)
+    mesh = jmake_mesh(JMeshSpec(**spec), devices=cpu_mesh8[:WORLD])
+    ring = jring(mesh, causal=True, block_impl="dense")
+
+    def attn_impl(q, k, v, causal=True, **kw):
+        return ring(q, k, v)
+
+    jparams = jax.tree_util.tree_map(jnp.asarray, inputs["params"])
+    loss, grads = jax.jit(jax.value_and_grad(lambda p: jllama.loss_fn(
+        p, {"tokens": jnp.asarray(inputs["tokens"])}, jcfg,
+        attn_impl=attn_impl)))(jparams)
+    want = {k: np.asarray(v) for k, v in _flat(grads).items()}
+    for r, res in enumerate(results):
+        np.testing.assert_allclose(res[f"{name}_loss"], float(loss),
+                                   **VALUE_TOL, err_msg=f"rank {r}")
+        got = {k[len(f"{name}_grad."):]: v for k, v in res.items()
+               if k.startswith(f"{name}_grad.")}
+        assert got.keys() == want.keys()
+        for key, w in want.items():
+            np.testing.assert_allclose(got[key], w, **GRAD_TOL,
+                                       err_msg=f"rank {r} {key}")
