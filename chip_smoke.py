@@ -7,12 +7,16 @@ Run from the repository root with no arguments:
 Phases, each of which raises on failure (the exit code is then not 0):
   1. the card's name and power limit; the three kernel libraries, built at
      once (one nvcc each) from ray_tpu_torch/csrc/flash_fwd.cu,
-     flash_bwd.cu and flash_stats.cu, and what ptxas reported;
+     flash_bwd.cu and flash_stats.cu, what ptxas reported (registers and
+     spills per kernel), and each kernel's count of HGMMA (tensor-core
+     wgmma) instructions in the SASS that cuobjdump shows: the bf16
+     forward and stats kernels must have some and spill nothing;
   2. the forward kernel against its plain PyTorch version on the same bf16
      inputs at the serving shapes (the output and the rows' log-sum-exp),
      with its time, the plain version's, that of torch's
      scaled_dot_product_attention (a yardstick only; the port never calls
-     it) and the least time the card could take;
+     it) and the least time the card could take; at the prefill shape
+     also the kernel's and sdpa's device time from torch.profiler;
   3. a small fp32 model on the card: logits through the kernel against the
      plain path on the CPU, and engine tokens against generate_greedy;
   4. the serving main path at Llama-3-8B full width and depth with random
@@ -27,7 +31,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
      the same bf16 inputs at the training shape, D = 128, a ragged L and a
      full mask, and once in fp32, with each kernel's time, the whole
      backward's, the plain version's, that of scaled_dot_product_attention's
-     backward (a yardstick only) and the bounds;
+     backward (a yardstick only) and the bounds; at the training shape
+     also the forward with lse, timed and profiled beside sdpa's;
   7. a small fp32 model trained on the card: the loss and every gradient
      through the kernels against the plain path on the CPU, dense and with
      remat and chunked vocab, then 3 AdamW steps against the same steps on
@@ -46,7 +51,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
      and once in fp32 with a stride-0 visible and a strided q; rows that
      see no key must give m == NEG_INF. With its time, the plain
      version's, the bound and torch's flash attention with its row
-     log-sum-exp (a yardstick only; the port never calls it);
+     log-sum-exp (a yardstick only; the port never calls it), and for
+     every key visible both device times from torch.profiler;
  10. a small fp32 model: the loss and every gradient through the sp = 4
      ring (flash block step) on the card, against the same on the CPU
      through the plain versions and against the card's flash_attention;
@@ -70,6 +76,8 @@ import asyncio
 import gc
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -195,6 +203,21 @@ def device_profile(fn, reps: int):
     return sum(k[0] for k in kernels), kernels
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: its kernels' time under
+    torch.profiler, without the host's gaps between launches that CUDA
+    events around a run of short calls also count. A window traced
+    without kernels (see ``profiled_kernels_ms``) is profiled again,
+    once; a second one raises."""
+    busy, kernels = device_profile(fn, reps)
+    if not kernels:
+        log("profiler trace has no kernels; profiling again")
+        busy, kernels = device_profile(fn, reps)
+    if not kernels:
+        raise AssertionError("profiler traced no kernel twice")
+    return busy
+
+
 def profiled_kernels_ms(fn, reps: int, names):
     """Device ms per rep of each kernel in ``names`` over ``reps`` runs of
     ``fn`` under torch.profiler. The profiler has been seen to return a
@@ -221,6 +244,75 @@ def kernel_ms(kernels, name: str) -> float:
 def log_top(kernels, n=10):
     for t, calls, name in kernels[:n]:
         log(f"  {t} ms/step in {calls} calls: {name[:100]}")
+
+
+# Each kernel's route, by dtype, for the kernels line.
+ROUTES = {
+    "flash_fwd": "bf16: wgmma tensor-core tiles fed by cp.async "
+                 "(csrc/flash_tc.cuh); fp32: CUDA cores",
+    "flash_bwd": "bf16 and fp32: CUDA cores (fp32 products)",
+    "flash_stats": "bf16: wgmma tensor-core tiles fed by cp.async "
+                   "(csrc/flash_tc.cuh), P V as bf16 p_hi + p_lo; fp32: "
+                   "CUDA cores",
+}
+# The bf16 kernels that must run on the tensor cores.
+TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_stats_tc_kernel")
+
+
+def _short_name(mangled: str) -> str:
+    """``flash_fwd_tc_kernel<64>`` from a kernel's mangled name."""
+    found = re.search(r"\d+(flash_\w+?kernel)I(.*?)EEv", mangled)
+    if not found:
+        return mangled
+    args = [{"13__nv_bfloat16": "bf16", "f": "float"}.get(a.group(0))
+            or a.group(1) for a in re.finditer(r"13__nv_bfloat16|Li(\d+)E|f",
+                                               found.group(2))]
+    return f"{found.group(1)}<{','.join(args)}>"
+
+
+def kernel_report(libs):
+    """Per kernel of each built library: ptxas's registers and spill
+    bytes, and the HGMMA instructions in its SASS (``cuobjdump -sass``).
+    Raises if a bf16 tensor-core kernel has no HGMMA or spills."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    report = {}
+    for lib in libs:
+        name = None
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                name = _short_name(found.group(1))
+                report[name] = {}
+            elif name and "spill stores" in line:
+                report[name]["spill_bytes"] = sum(
+                    int(n) for n in re.findall(r"(\d+) bytes spill", line))
+            elif name and "Used" in line and "registers" in line:
+                report[name]["registers"] = int(
+                    re.search(r"Used (\d+) registers", line).group(1))
+        sass = subprocess.run(
+            [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
+            capture_output=True, text=True, check=True).stdout
+        name = None
+        for line in sass.splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                name = _short_name(found.group(1))
+                report.setdefault(name, {})["hgmma"] = 0
+            elif name and "HGMMA" in line:
+                report[name]["hgmma"] += 1
+    for name, rec in sorted(report.items()):
+        log(f"kernel {name}: {json.dumps(rec)}")
+    for name, rec in report.items():
+        if name.startswith(TENSOR_CORE_KERNELS) and not (
+                rec.get("hgmma", 0) > 0 and rec.get("spill_bytes") == 0):
+            raise AssertionError(f"{name} is not a tensor-core kernel "
+                                 f"without spills: {rec}")
+    if not all(any(n.startswith(k) for n in report)
+               for k in TENSOR_CORE_KERNELS):
+        raise AssertionError(f"a tensor-core kernel is missing from "
+                             f"{sorted(report)}")
+    return report
 
 
 def card_line() -> str:
@@ -270,6 +362,12 @@ def check_kernel(attention, gen):
                    rtol=BF16_RTOL, lse_max_abs_err=lse_err, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                    bound_by=bound_by)
+        if L == 1024:  # the prefill of the serving main path
+            row["device_ms"] = device_ms(
+                lambda: attention.flash_attention(q, k, v, causal), 20)
+            row["library_device_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
         rows.append(row)
         log("kernel_check", json.dumps(row))
     # fp32 inputs take the same kernel in its fp32 instantiation.
@@ -421,10 +519,15 @@ def check_bwd(attention, gen):
             row["fwd_plain_ms"] = time_ms(
                 lambda: attention.flash_attention_plain(
                     q, k, v, causal=causal, return_lse=True), 2)
-            row["fwd_library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=causal, enable_gqa=True), 10)
+                    is_causal=causal, enable_gqa=True)
+
+            row["fwd_library_ms"] = time_ms(sdpa_fwd, 10)
+            row["fwd_device_ms"] = device_ms(
+                lambda: attention.flash_attention_fwd(q, k, v, causal), 10)
+            row["fwd_library_device_ms"] = device_ms(sdpa_fwd, 10)
             row["fwd_bound_ms"], row["fwd_bound_by"] = attention_bound(
                 B, L, H, Hkv, D, causal)
         rows.append(row)
@@ -568,14 +671,20 @@ def _stats_case(attention, q, k, v, vis, name):
         qt = q.transpose(1, 2)
         kt, vt = (t.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
                   for t in (k, v))
-        library_ms = time_ms(
-            lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-                qt, kt, vt, 0.0, name == "diagonal"), 10)
+        def library():
+            return torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, name == "diagonal")
+
+        library_ms = time_ms(library, 10)
     row = dict(pattern=name, B=B, Lq=Lq, Lk=Lk, H=H, Hkv=Hkv, D=D,
                max_abs_err=max(err_o, err_l), o_err=err_o, m_err=err_m,
                l_err=err_l, rule=STATS_RULE, m_tol=STATS_M_TOL, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                bound_by=bound_by)
+    if name == "all":  # the ring's full blocks
+        row["device_ms"] = device_ms(
+            lambda: attention.flash_attention_stats(q, k, v, vis), 10)
+        row["library_device_ms"] = device_ms(library, 10)
     log("stats_check", json.dumps(row))
     return row
 
@@ -840,13 +949,7 @@ def main() -> int:
         libs = list(pool.map(attention.build, attention.KERNELS))
     log(f"build: {[lib.name for lib in libs]} in {time.perf_counter() - t0}"
         f" s, in parallel")
-    for lib in libs:
-        ptxas = lib.with_suffix(".log")
-        if ptxas.exists():
-            for line in ptxas.read_text().splitlines():
-                if "registers" in line or "spill" in line or \
-                        "Compiling" in line:
-                    log("ptxas:", line.strip()[:160])
+    compiled = kernel_report(libs)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = check_kernel(attention, gen)
@@ -1007,13 +1110,18 @@ def main() -> int:
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        "device_ms": main["device_ms"],
+        "library_device_ms": main["library_device_ms"],
         "shape": "B=1 L=1024 H=32 Hkv=8 D=128 causal bf16",
         "train_shape": {"shape": train_shape + ", with lse",
                         "ms": train["fwd_ms"],
                         "plain_ms": train["fwd_plain_ms"],
                         "bound_ms": train["fwd_bound_ms"],
                         "bound_by": train["fwd_bound_by"],
-                        "library_ms": train["fwd_library_ms"]},
+                        "library_ms": train["fwd_library_ms"],
+                        "device_ms": train["fwd_device_ms"],
+                        "library_device_ms":
+                            train["fwd_library_device_ms"]},
     }]
     for name, part in (("dkdv", "dK, dV"), ("dq", "dQ")):
         kernels.append({
@@ -1058,6 +1166,8 @@ def main() -> int:
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
         "library_ms": full["library_ms"],
+        "device_ms": full["device_ms"],
+        "library_device_ms": full["library_device_ms"],
         "library": "torch.ops.aten._scaled_dot_product_flash_attention "
                    "(normalised o and lse) on K/V repeated to 32 heads",
         "shape": "B=1 Lq=Lk=2048 H=32 Hkv=8 D=64 bf16, every key visible",
@@ -1065,6 +1175,11 @@ def main() -> int:
             "Lq", "Lk", "D", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err")} for r in stats_rows},
     })
+    for k in kernels:
+        lib = k["source"].rsplit("/", 1)[1][:-3]
+        k["route_detail"] = ROUTES[lib]
+        k["compiled"] = {n: rec for n, rec in compiled.items()
+                         if n.startswith(k["name"] + "_")}
     if not all(math.isfinite(k[f]) for k in kernels
                for f in ("ms", "plain_ms", "library_ms", "bound_ms")):
         raise AssertionError(f"non-finite timing in {kernels}")

@@ -19,22 +19,30 @@
 // What bounds it. Causal attention at D = 128 with 4 query heads per kv
 // head does about L / 2.4 FLOPs per byte it must move, so at the card's
 // bf16 tensor-core rate it is bound by bytes up to L ~ 700 and by
-// operations past it. This first version does its products on the fp32
-// CUDA cores (67 TFLOP/s, not 989), so it is bound by operations from
-// L = 64 on, and by shared-memory reads within that.
-// Its design keeps what it can out of device memory: each K/V tile is read
-// from memory once per block of 64 query rows, converted to fp32 in shared
-// memory, and the scores never leave registers. Tensor cores (wgmma) and
-// TMA loads are later work.
+// operations past it; at the main paths' shapes (L = 1024 and 2048) by
+// operations.
 //
-// Block: 4 warps, 64 query rows (16 per warp). Each K/V tile holds 32 keys,
-// one per lane. A lane computes its key's score for each of its warp's 16
-// rows, the warp reduces the row max by shuffles, and the P.V product
-// broadcasts p by shuffles while each lane accumulates D/32 output columns
-// (d = lane + 32 e, so stores coalesce). The running sum l is kept per lane
-// and reduced once at the end.
+// Two routes, by dtype:
+//   * bf16 (every main path): flash_fwd_tc_kernel, the tensor-core core of
+//     flash_tc.cuh. S = Q K^T and P V are wgmma products with fp32 sums,
+//     and K/V tiles arrive by cp.async in a ring of two stages while the
+//     previous tile is multiplied. P V takes p as p_hi + p_lo in bf16, not
+//     one bf16 p as FlashAttention 2 and 3 do: o off by 2^-9 before its
+//     rounding flips bf16 roundings of o, which the backward's
+//     di = rowsum(o dO) carries into dq, past the rule that holds a ring's
+//     gradients to this path's. Blocks of 128 query rows; the heaviest
+//     causal tiles are launched first, so the grid does not end on a tail
+//     of long blocks. Rows need 16-byte aligned starts (the wrapper
+//     checks).
+//   * fp32: flash_fwd_kernel, the first version's CUDA-core code, kept
+//     because fp32 models on the card are held to the CPU at 1e-4, which
+//     TF32 products would not meet. Block: 4 warps, 64 query rows (16 per
+//     warp), K/V tiles of 32 keys converted to fp32 in shared memory; a
+//     lane computes its key's score for each of its warp's rows, and P.V
+//     broadcasts p by shuffles.
 
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -191,6 +199,61 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+flash_fwd_tc_kernel(const tc::bf16* __restrict__ q,
+                    const tc::bf16* __restrict__ k,
+                    const tc::bf16* __restrict__ v, tc::bf16* __restrict__ o,
+                    float* __restrict__ lse, int Lq, int Lk, int H, int group,
+                    Strides qs, Strides ks, Strides vs, Strides os,
+                    float scale, int causal) {
+  const tc::BlockAt at = tc::block_at(Lq, H);
+  const int b = at.b, h = at.h, hk = h / group;
+  int rows[2], limit[2];
+  tc::thread_rows(at.q0, rows);
+  for (int i = 0; i < 2; ++i)
+    limit[i] = rows[i] >= Lq ? 0 : causal ? min(rows[i] + 1, Lk) : Lk;
+  float acc[D / 2], m[2], l[2];
+  tc::attend<D>(q + b * qs.b + h * qs.h, qs.l, k + b * ks.b + hk * ks.h, ks.l,
+                v + b * vs.b + hk * vs.h, vs.l, at.q0, Lq, Lk, limit, scale,
+                acc, m, l);
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= Lq) continue;
+    const float denom = fmaxf(l[i], 1e-30f), inv = 1.f / denom;
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(b) * H + h) * Lq + rows[i]] =
+          m[i] + logf(denom);
+    tc::bf16* out = o + b * os.b + rows[i] * os.l + h * os.h + 2 * t;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) = __floats2bfloat162_rn(
+          acc[4 * c + 2 * i] * inv, acc[4 * c + 2 * i + 1] * inv);
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Lq, int Lk, int H, int Hkv,
+              const long long* st, float scale, int causal,
+              cudaStream_t stream) {
+  constexpr int smem = tc::Smem<D>::kBytes;
+  static bool smem_set[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(flash_fwd_tc_kernel<D>), smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = tc::grid_blocks(B, Lq, H);
+  if (blocks > 0x7fffffff) return -3;
+  flash_fwd_tc_kernel<D><<<static_cast<unsigned>(blocks), tc::kThreads, smem,
+                           stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), lse, Lq, Lk,
+      H, H / Hkv, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      strides_at(st, 3), scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Returns 0 on success, a cudaError_t value if the launch failed, and a
@@ -214,10 +277,9 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
                    : launch<float, 128>(q, k, v, o, lse, B, Lq, Lk, H, Hkv,
                                         strides, scale, causal, s);
   if (dtype == 1)
-    return D == 64
-               ? launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, Lq, Lk, H, Hkv,
-                                           strides, scale, causal, s)
-               : launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, Lq, Lk, H,
-                                            Hkv, strides, scale, causal, s);
+    return D == 64 ? launch_tc<64>(q, k, v, o, lse, B, Lq, Lk, H, Hkv, strides,
+                                   scale, causal, s)
+                   : launch_tc<128>(q, k, v, o, lse, B, Lq, Lk, H, Hkv,
+                                    strides, scale, causal, s);
   return -1;
 }

@@ -10,8 +10,8 @@
 // written out unnormalised, o = sum_c exp(s_c - m) v_c in fp32, with the
 // row's max m and sum l, so that a ring can merge the blocks its ranks hold.
 // It differs from it where the TPU shaped it:
-//   * K/V are streamed in tiles of 32 keys. The Pallas kernel holds a head's
-//     whole K/V shard in VMEM, which bounded the shard length (the JAX ring's
+//   * K/V are streamed in tiles. The Pallas kernel holds a head's whole
+//     K/V shard in VMEM, which bounded the shard length (the JAX ring's
 //     `_FLASH_KV_VMEM_BUDGET` gate); here nothing bounds it.
 //   * A block stops at the largest visible count among its rows, so rows and
 //     blocks that see no key visit no K/V tile (flash_fwd.cu's causal
@@ -28,19 +28,25 @@
 // operations (the score and the P.V product). With every key visible at the
 // ring shard shape Lq = Lk = 2048, H = 32, Hkv = 8, D = 64 that is 3.4e10
 // operations against about 13 MB read and 17 MB written, so at the card's
-// bf16 tensor-core rate it is bound by operations. This first version does
-// its products on the fp32 CUDA cores, as flash_fwd.cu does, so it is bound
-// by them and by shared-memory reads. Tensor cores (wgmma) and TMA loads
-// are later work.
+// bf16 tensor-core rate it is bound by operations.
 //
-// Block: the layout of flash_fwd.cu. 4 warps, 64 query rows (16 per warp);
-// each K/V tile holds 32 keys, one per lane. A lane computes its key's score
-// for each of its warp's 16 rows, the warp reduces the row max by shuffles,
-// and the P.V product broadcasts p by shuffles while each lane accumulates
-// D/32 output columns (d = lane + 32 e, so stores coalesce). The running sum
-// l is kept per lane and reduced once at the end.
+// Two routes, by dtype:
+//   * bf16 (the ring's main path): flash_stats_tc_kernel, the tensor-core
+//     core of flash_tc.cuh that flash_fwd.cu's bf16 route also runs, with
+//     the visible counts as each row's limit and an fp32 epilogue. Its
+//     output is fp32 and held to 1e-4, which P V with p = p_hi + p_lo in
+//     bf16 meets (p to ~2^-17) and one bf16 p (2^-9) would not. Blocks of
+//     128 query rows, the last query tiles launched first (under a causal
+//     ring's diagonal counts they see the most keys). Rows need 16-byte
+//     aligned starts (the wrapper checks).
+//   * fp32: flash_stats_kernel, the first version's CUDA-core code in
+//     flash_fwd.cu's fp32 layout (4 warps, 64 query rows, 32-key tiles, one
+//     key per lane), kept because fp32 models on the card are held to the
+//     CPU at 1e-4, which TF32 products would not meet. A warp stops at the
+//     largest count among its rows.
 
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -214,6 +220,65 @@ int launch(const void* q, const void* k, const void* v, const int* visible,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+flash_stats_tc_kernel(const tc::bf16* __restrict__ q,
+                      const tc::bf16* __restrict__ k,
+                      const tc::bf16* __restrict__ v,
+                      const int* __restrict__ visible, float* __restrict__ o,
+                      float* __restrict__ m_out, float* __restrict__ l_out,
+                      int Lq, int Lk, int H, int group, Strides qs,
+                      Strides ks, Strides vs, Strides os, Strides vis_s,
+                      float scale) {
+  const tc::BlockAt at = tc::block_at(Lq, H);
+  const int b = at.b, h = at.h, hk = h / group;
+  const int* visb = visible + b * vis_s.b + h * vis_s.h;
+  int rows[2], limit[2];
+  tc::thread_rows(at.q0, rows);
+  for (int i = 0; i < 2; ++i)
+    limit[i] = rows[i] >= Lq ? 0 : min(max(visb[rows[i] * vis_s.l], 0), Lk);
+  float acc[D / 2], m[2], l[2];
+  tc::attend<D>(q + b * qs.b + h * qs.h, qs.l, k + b * ks.b + hk * ks.h, ks.l,
+                v + b * vs.b + hk * vs.h, vs.l, at.q0, Lq, Lk, limit, scale,
+                acc, m, l);
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= Lq) continue;
+    if (t == 0) {
+      const long long row = (static_cast<long long>(b) * H + h) * Lq + rows[i];
+      m_out[row] = m[i];
+      l_out[row] = l[i];
+    }
+    float* out = o + b * os.b + rows[i] * os.l + h * os.h + 2 * t;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<float2*>(out + 8 * c) =
+          make_float2(acc[4 * c + 2 * i], acc[4 * c + 2 * i + 1]);
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, const int* visible,
+              float* o, float* m, float* l, int B, int Lq, int Lk, int H,
+              int Hkv, const long long* st, float scale, cudaStream_t stream) {
+  constexpr int smem = tc::Smem<D>::kBytes;
+  static bool smem_set[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(flash_stats_tc_kernel<D>), smem,
+      smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = tc::grid_blocks(B, Lq, H);
+  if (blocks > 0x7fffffff) return -3;
+  flash_stats_tc_kernel<D><<<static_cast<unsigned>(blocks), tc::kThreads, smem,
+                             stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), visible, o, m, l, Lq, Lk, H, H / Hkv,
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      strides_at(st, 3), strides_at(st, 4), scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Returns 0 on success, a cudaError_t value if the launch failed, and a
@@ -239,11 +304,9 @@ extern "C" int ray_flash_stats(const void* q, const void* k, const void* v,
                    : launch<float, 128>(q, k, v, visible, o, m, l, B, Lq, Lk,
                                         H, Hkv, strides, scale, s);
   if (dtype == 1)
-    return D == 64 ? launch<__nv_bfloat16, 64>(q, k, v, visible, o, m, l, B,
-                                               Lq, Lk, H, Hkv, strides, scale,
-                                               s)
-                   : launch<__nv_bfloat16, 128>(q, k, v, visible, o, m, l, B,
-                                                Lq, Lk, H, Hkv, strides,
-                                                scale, s);
+    return D == 64 ? launch_tc<64>(q, k, v, visible, o, m, l, B, Lq, Lk, H, Hkv,
+                                   strides, scale, s)
+                   : launch_tc<128>(q, k, v, visible, o, m, l, B, Lq, Lk, H,
+                                    Hkv, strides, scale, s);
   return -1;
 }

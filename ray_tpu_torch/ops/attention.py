@@ -21,9 +21,13 @@ Port of ``ray_tpu/ops/attention.py``:
     against them; nothing on the CUDA path calls them.
   * ``dense_attention`` is the JAX package's oracle.
 
-Each kernel is built at its first CUDA use with ``nvcc`` into
-``ray_tpu_torch/_build/``, keyed by a hash of its sources, and loaded
-with ``ctypes``. A failed build raises.
+For bf16 inputs the forward and stats kernels run on the tensor cores
+(``csrc/flash_tc.cuh``: wgmma products fed by ``cp.async``), which need
+each row of q, k and v on a 16-byte boundary; for fp32 inputs, and in the
+backward, the products run on the CUDA cores. Each kernel is built at its
+first CUDA use with ``nvcc`` into ``ray_tpu_torch/_build/``, keyed by a
+hash of its ``.cu`` and every header (``source_digest``), and loaded with
+``ctypes``. A failed build raises.
 """
 
 from __future__ import annotations
@@ -47,9 +51,9 @@ _BUILD_DIR = _PKG / "_build"
 #: The kernel libraries, each built from ``csrc/<name>.cu``.
 KERNELS = ("flash_fwd", "flash_bwd", "flash_stats")
 _HEAD_DIMS = (64, 128)
-#: The stats kernel's query and key tiles (``csrc/flash_stats.cu``), which
-#: its plain version follows.
-_STATS_BLOCK_Q, _STATS_BLOCK_K = 64, 32
+#: The query tile of the bf16 forward and stats kernels (the tensor-core
+#: core, ``csrc/flash_tc.cuh``); their plain versions follow its tiles.
+_TC_BLOCK_Q = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Forward kernel launches made by ``flash_attention``; a run that resets
@@ -63,6 +67,11 @@ stats_launches = 0
 
 _libs: dict = {}
 _lib_lock = threading.Lock()
+
+
+def _tc_block_k(head_dim: int) -> int:
+    """The tensor-core core's key tile: 128 keys at D = 64, 64 at D = 128."""
+    return 128 if head_dim <= 64 else 64
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -93,16 +102,19 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, causal: bool = False,
                           scale: Optional[float] = None,
-                          block_q: int = 64, block_k: int = 32,
+                          block_q: Optional[int] = None,
+                          block_k: Optional[int] = None,
                           return_lse: bool = False):
     """The forward kernel's math in PyTorch: per (query block, key block)
     an fp32 online softmax, masked probabilities set to 0, causal block
     skipping, any L (the last blocks are short), output divided by
-    max(l, 1e-30) and cast to q's dtype. With ``return_lse`` it also
-    returns each row's log-sum-exp of the scaled scores, fp32 [B, H, Lq],
-    as ``(o, lse)``."""
+    max(l, 1e-30) and cast to q's dtype. The blocks default to the bf16
+    kernel's tiles. With ``return_lse`` it also returns each row's
+    log-sum-exp of the scaled scores, fp32 [B, H, Lq], as ``(o, lse)``."""
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
+    block_q = block_q or _TC_BLOCK_Q
+    block_k = block_k or _tc_block_k(D)
     if causal and Lq != Lk:
         raise ValueError(f"causal flash attention needs Lq == Lk, got "
                          f"{Lq} and {Lk}")
@@ -202,10 +214,11 @@ def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
     """The stats kernel's math in PyTorch: per (query block, key block) an
     fp32 online softmax over the keys ``col < visible[b, h, row]``, masked
     probabilities set to 0, and each query block stopping at the largest
-    count among its rows. Returns ``(o, m, l)``: the unnormalised output,
-    fp32 [B, Lq, H, D], and the rows' max and sum, fp32 [B, H, Lq]. A row
-    that sees no key keeps m = NEG_INF, l = 0 and o = 0. Each kv head
-    serves its group of query heads (GQA) without being repeated."""
+    count among its rows, in the bf16 kernel's tiles. Returns
+    ``(o, m, l)``: the unnormalised output, fp32 [B, Lq, H, D], and the
+    rows' max and sum, fp32 [B, H, Lq]. A row that sees no key keeps
+    m = NEG_INF, l = 0 and o = 0. Each kv head serves its group of query
+    heads (GQA) without being repeated."""
     B, Lq, H, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -220,12 +233,13 @@ def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
     o = torch.zeros(B, Hkv, group, Lq, D, device=q.device)
     m = torch.full((B, Hkv, group, Lq), NEG_INF, device=q.device)
     l = torch.zeros(B, Hkv, group, Lq, device=q.device)
-    for q0 in range(0, Lq, _STATS_BLOCK_Q):
-        q1 = min(Lq, q0 + _STATS_BLOCK_Q)
+    block_k = _tc_block_k(D)
+    for q0 in range(0, Lq, _TC_BLOCK_Q):
+        q1 = min(Lq, q0 + _TC_BLOCK_Q)
         seen_to = vis[..., q0:q1, None]
         mb, lb, ob = m[..., q0:q1], l[..., q0:q1], o[..., q0:q1, :]
-        for k0 in range(0, int(seen_to.max()), _STATS_BLOCK_K):
-            k1 = min(Lk, k0 + _STATS_BLOCK_K)
+        for k0 in range(0, int(seen_to.max()), block_k):
+            k1 = min(Lk, k0 + block_k)
             s = qf[..., q0:q1, :] @ kf[..., k0:k1, :].transpose(-1, -2)
             seen = torch.arange(k0, k1, device=q.device) < seen_to
             s = torch.where(seen, s, NEG_INF)
@@ -361,6 +375,19 @@ def _check(q, k, v, causal):
             raise ValueError(f"{name} must have a unit-stride head dim")
 
 
+def _check_rows_aligned(**ts):
+    """The bf16 kernels copy rows in 16-byte chunks (``cp.async``), so each
+    row of each tensor must start on a 16-byte boundary: its base address
+    and its (batch, seq, head) strides, in bytes, divide by 16."""
+    for name, t in ts.items():
+        steps = [st * t.element_size() for st, n in
+                 zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(s % 16 for s in steps):
+            raise ValueError(
+                f"{name}: the bf16 kernel needs rows on 16-byte boundaries, "
+                f"got address {t.data_ptr():#x} and strides {t.stride()}")
+
+
 def _strides(*ts) -> ctypes.Array:
     """(batch, seq, head) strides of each tensor, flat, for the kernels."""
     flat = [n for t in ts for n in t.stride()[:3]]
@@ -372,6 +399,8 @@ def _launch(q, k, v, causal: bool, scale: float, with_lse: bool = False):
     fp32 log-sum-exp [B, H, Lq] when ``with_lse``."""
     global launches
     _check(q, k, v, causal)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q=q, k=k, v=v)
     lib = _load("flash_fwd")
     B, Lq, H, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
@@ -434,6 +463,8 @@ def _launch_stats(q, k, v, visible, scale: float):
         raise ValueError(f"visible must be int32 [B, H, Lq] = {(B, H, Lq)} "
                          f"on {q.device}, got {visible.dtype} "
                          f"{tuple(visible.shape)} on {visible.device}")
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q=q, k=k, v=v)
     lib = _load("flash_stats")
     o = torch.empty((B, Lq, H, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
@@ -461,17 +492,25 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def source_digest(name: str, csrc: Path = _CSRC) -> str:
+    """The key of library ``name``'s build: a hash of ``<name>.cu`` and of
+    every header in ``csrc`` (names and contents), so that editing any
+    header a kernel may include rebuilds it."""
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build(name: str = "flash_fwd") -> Path:
     """Compile ``csrc/<name>.cu`` for sm_90a into ``_build/`` unless a
-    library built from the same sources (the ``.cu`` and the shared
-    header) is there; returns its path. ptxas's report is kept beside it
-    as ``<library>.log``."""
+    library built from the same sources (``source_digest``) is there;
+    returns its path. ptxas's report is kept beside it as
+    ``<library>.log``."""
     if name not in KERNELS:
         raise ValueError(f"unknown kernel library {name!r}")
     source = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes())
-    digest.update((_CSRC / "flash_common.cuh").read_bytes())
-    lib_path = _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+    lib_path = _BUILD_DIR / f"{name}_{source_digest(name)}.so"
     if lib_path.exists():
         return lib_path
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -211,6 +211,48 @@ def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
     assert tattn.launches == 0
 
 
+def test_build_key_follows_every_header(tmp_path):
+    """A library's build key covers its .cu and every csrc header, so an
+    edit to a header any kernel includes (flash_tc.cuh) rebuilds it; no
+    nvcc is needed to compute it."""
+    for src in (REPO / "ray_tpu_torch" / "csrc").iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    key = {n: tattn.source_digest(n, tmp_path) for n in tattn.KERNELS}
+    assert key == {n: tattn.source_digest(n) for n in tattn.KERNELS}
+    for header in ("flash_tc.cuh", "flash_common.cuh"):
+        path = tmp_path / header
+        path.write_bytes(path.read_bytes() + b"\n// edited\n")
+        edited = {n: tattn.source_digest(n, tmp_path) for n in tattn.KERNELS}
+        assert all(edited[n] != key[n] for n in tattn.KERNELS), header
+        key = edited
+    (tmp_path / "flash_new.cuh").write_text("#pragma once\n")
+    assert tattn.source_digest("flash_fwd", tmp_path) != key["flash_fwd"]
+    # a kernel's own source moves its key alone
+    key = {n: tattn.source_digest(n, tmp_path) for n in tattn.KERNELS}
+    path = tmp_path / "flash_stats.cu"
+    path.write_bytes(path.read_bytes() + b"\n")
+    assert {n: tattn.source_digest(n, tmp_path) for n in tattn.KERNELS} == \
+        dict(key, flash_stats=tattn.source_digest("flash_stats", tmp_path))
+    assert tattn.source_digest("flash_stats", tmp_path) != key["flash_stats"]
+
+
+def test_bf16_kernels_take_only_rows_on_16_byte_boundaries():
+    """The bf16 kernels copy rows in 16-byte chunks: a view whose base or
+    (batch, seq, head) stride is off a 16-byte boundary raises, and the
+    layouts the main paths pass (contiguous, a slice of heads or
+    positions, a head dim cut from a wider one of 8k elements) do not."""
+    x = torch.zeros(2, 64, 8, 128, dtype=torch.bfloat16)
+    for ok in (x, x[:, 16:], x[:, :, 2:6], x[..., :64], x[:, :1, :, 8:72]):
+        tattn._check_rows_aligned(q=ok)
+    narrow = torch.zeros(2, 64, 8, 100, dtype=torch.bfloat16)[..., :64]
+    for bad in (x[..., 1:65], narrow):  # base 2 bytes in; head step 200
+        with pytest.raises(ValueError, match="16-byte"):
+            tattn._check_rows_aligned(k=bad)
+    # an axis of extent 1 is never stepped over: its stride is free
+    tattn._check_rows_aligned(v=x[:1, :1].as_strided((1, 1, 8, 64),
+                                                     (3, 5, 128, 1)))
+
+
 # -------------------------------------------------- package boundaries
 
 _FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "ray_tpu")
