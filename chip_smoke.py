@@ -10,7 +10,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
      flash_bwd.cu and flash_stats.cu, what ptxas reported (registers and
      spills per kernel), and each kernel's count of HGMMA (tensor-core
      wgmma) instructions in the SASS that cuobjdump shows: the bf16
-     forward and stats kernels must have some and spill nothing;
+     forward, stats and backward (dK/dV and dQ) kernels must have some and
+     spill nothing;
   2. the forward kernel against its plain PyTorch version on the same bf16
      inputs at the serving shapes (the output and the rows' log-sum-exp),
      with its time, the plain version's, that of torch's
@@ -29,10 +30,13 @@ Phases, each of which raises on failure (the exit code is then not 0):
      The 8B weights and the server are freed after it;
   6. the backward kernels (dK/dV and dQ) against their plain version on
      the same bf16 inputs at the training shape, D = 128, a ragged L and a
-     full mask, and once in fp32, with each kernel's time, the whole
-     backward's, the plain version's, that of scaled_dot_product_attention's
-     backward (a yardstick only) and the bounds; at the training shape
-     also the forward with lse, timed and profiled beside sdpa's;
+     full mask, and once in fp32, with each kernel's device time, the whole
+     backward's time and device time, di's plain reduction on its own, the
+     plain version's time, that of scaled_dot_product_attention's backward
+     (a yardstick only) by events and its device time, and the bounds; two
+     backward calls on the same inputs must give the same bits. At the
+     training shape also the forward with lse, timed and profiled beside
+     sdpa's;
   7. a small fp32 model trained on the card: the loss and every gradient
      through the kernels against the plain path on the CPU, dense and with
      remat and chunked vocab, then 3 AdamW steps against the same steps on
@@ -203,33 +207,60 @@ def device_profile(fn, reps: int):
     return sum(k[0] for k in kernels), kernels
 
 
+def _two_windows(measure, what: str):
+    """``measure()`` (a tuple of ms) over two profiler windows, the longer
+    of the two for each entry: the profiler has been seen to return a
+    window's trace without some of the kernels that ran in it, which only
+    ever shortens a window. A disagreement of more than 10% is logged."""
+    first, second = measure(), measure()
+    if any(max(a, b) > 1.1 * min(a, b) for a, b in zip(first, second)):
+        log(f"profiler windows disagree on {what}: {first} and {second} "
+            f"ms; the longer is taken")
+    return tuple(max(a, b) for a, b in zip(first, second))
+
+
 def device_ms(fn, reps: int) -> float:
     """Device time per call of ``fn``: its kernels' time under
     torch.profiler, without the host's gaps between launches that CUDA
-    events around a run of short calls also count. A window traced
-    without kernels (see ``profiled_kernels_ms``) is profiled again,
-    once; a second one raises."""
-    busy, kernels = device_profile(fn, reps)
-    if not kernels:
-        log("profiler trace has no kernels; profiling again")
+    events around a run of short calls also count; the longer of two
+    windows (``_two_windows``). A window traced without kernels is
+    profiled again, once; a second one raises."""
+    def measure():
         busy, kernels = device_profile(fn, reps)
-    if not kernels:
-        raise AssertionError("profiler traced no kernel twice")
-    return busy
+        if not kernels:
+            log("profiler trace has no kernels; profiling again")
+            busy, kernels = device_profile(fn, reps)
+        if not kernels:
+            raise AssertionError("profiler traced no kernel twice")
+        return (busy,)
+
+    return _two_windows(measure, "the device time")[0]
 
 
 def profiled_kernels_ms(fn, reps: int, names):
-    """Device ms per rep of each kernel in ``names`` over ``reps`` runs of
-    ``fn`` under torch.profiler. The profiler has been seen to return a
-    window's trace without the kernels that ran in it; such a window is
-    profiled again, once, and the retry logged. A second such trace
-    raises."""
-    _, kernels = device_profile(fn, reps)
-    if not all(any(n in key for _, _, key in kernels) for n in names):
-        log(f"profiler trace lacks one of {names} ({len(kernels)} kernels "
-            f"in it); profiling again")
+    """Device ms per rep of each kernel in ``names``, each launched once a
+    call of ``fn``, over ``reps`` runs of ``fn`` under torch.profiler, the
+    longer of two windows (``_two_windows``). A window whose trace does not
+    show each kernel ``reps`` times is profiled again, once, and the retry
+    logged; a second such trace raises, so a kernel the profiler dropped
+    from a window never gives a short reading."""
+    def launches(kernels):
+        return [round(sum(n * reps for _, n, key in kernels if name in key))
+                for name in names]
+
+    def measure():
         _, kernels = device_profile(fn, reps)
-    return tuple(kernel_ms(kernels, n) for n in names)
+        if launches(kernels) != [reps] * len(names):
+            log(f"profiler trace shows {launches(kernels)} launches of "
+                f"{names} in {reps} calls; profiling again")
+            _, kernels = device_profile(fn, reps)
+            if launches(kernels) != [reps] * len(names):
+                raise AssertionError(
+                    f"profiler trace shows {launches(kernels)} launches of "
+                    f"{names} in {reps} calls, twice")
+        return tuple(kernel_ms(kernels, n) for n in names)
+
+    return _two_windows(measure, str(names))
 
 
 def kernel_ms(kernels, name: str) -> float:
@@ -250,13 +281,16 @@ def log_top(kernels, n=10):
 ROUTES = {
     "flash_fwd": "bf16: wgmma tensor-core tiles fed by cp.async "
                  "(csrc/flash_tc.cuh); fp32: CUDA cores",
-    "flash_bwd": "bf16 and fp32: CUDA cores (fp32 products)",
+    "flash_bwd": "bf16: wgmma tensor-core tiles fed by cp.async "
+                 "(csrc/flash_tc.cuh, csrc/flash_tc_bwd.cuh), P and dS as "
+                 "bf16 hi + lo; fp32: CUDA cores",
     "flash_stats": "bf16: wgmma tensor-core tiles fed by cp.async "
                    "(csrc/flash_tc.cuh), P V as bf16 p_hi + p_lo; fp32: "
                    "CUDA cores",
 }
 # The bf16 kernels that must run on the tensor cores.
-TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_stats_tc_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_stats_tc_kernel",
+                       "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
 
 
 def _short_name(mangled: str) -> str:
@@ -457,13 +491,16 @@ BWD_SHAPES = [  # (B, L, H, Hkv, D, causal): why
     (1, 1024, 32, 8, 128, True),   # D = 128
     (1, 200, 32, 8, 64, True),     # ragged L
     (1, 256, 32, 8, 64, False),    # full mask
+    (1, 8192, 8, 2, 64, True),     # a Ulysses rank's call: 64-key dK/dV
+    (4, 2048, 32, 8, 128, True),   # D = 128 with 128-key dK/dV blocks
 ]
 
 
 def check_bwd(attention, gen):
     """Phase 6: the backward kernels against their plain version, on the
-    same inputs (the kernel forward's o and lse feed both); returns a row
-    per shape, the first at the training shape."""
+    same inputs (the kernel forward's o and lse feed both), and against
+    themselves: a second call must give the same bits. Returns a row per
+    shape, the first at the training shape."""
     import torch.nn.functional as F
 
     rows = []
@@ -492,9 +529,18 @@ def check_bwd(attention, gen):
         def bwd():
             return attention.flash_attention_bwd(q, k, v, o, lse, do, causal)
 
+        again = bwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{where}: two backward calls differ")
         row["bwd_ms"] = time_ms(bwd, 10)
+        row["bwd_device_ms"] = device_ms(bwd, 5)
         row["dkdv_ms"], row["dq_ms"] = profiled_kernels_ms(
-            bwd, 5, ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"))
+            bwd, 5, ("flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel"))
+        row["di_ms"] = time_ms(lambda: attention.bwd_di(o, do), 10)
+        row["di_device_ms"] = device_ms(lambda: attention.bwd_di(o, do), 5)
+        log(f"bwd_di {where}: the plain reduction di = rowsum(o dO) "
+            f"{row['di_ms']} ms, device {row['di_device_ms']} ms")
         row["plain_ms"] = time_ms(lambda: attention.flash_attention_bwd_plain(
             q, k, v, o, lse, do, causal=causal), 2)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -509,11 +555,18 @@ def check_bwd(attention, gen):
         row["library_ms"] = time_ms(
             lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), 10) - \
             time_ms(sdpa, 10)
+        # The backward alone: the graph is built once, then only its
+        # gradient runs under the profiler.
+        graph = sdpa()
+        row["library_device_ms"] = device_ms(
+            lambda: torch.autograd.grad(graph, (qt, kt, vt), dot,
+                                        retain_graph=True), 5)
+        del graph
         whole, dkdv, dq = bwd_bounds(B, L, H, Hkv, D, causal)
         row["bound_ms"], row["bound_by"] = whole
         row["dkdv_bound_ms"], row["dkdv_bound_by"] = dkdv
         row["dq_bound_ms"], row["dq_bound_by"] = dq
-        if B == 4:  # the forward with lse at the training shape
+        if not rows:  # the forward with lse at the training shape
             row["fwd_ms"] = time_ms(
                 lambda: attention.flash_attention_fwd(q, k, v, causal), 10)
             row["fwd_plain_ms"] = time_ms(
@@ -1147,10 +1200,22 @@ def main() -> int:
             "bound_ms": train[f"{name}_bound_ms"],
             "bound_by": train[f"{name}_bound_by"],
             "library_ms": train["library_ms"],
+            "device_ms": train[f"{name}_ms"],
+            "library_device_ms": train["library_device_ms"],
+            "timing": "ms and device_ms: the kernel's device time "
+                      "(torch.profiler); library: sdpa's backward",
             "computes": part,
             "plain_and_library_compute": "dQ, dK and dV",
             "backward_ms": train["bwd_ms"],
+            "backward_device_ms": train["bwd_device_ms"],
             "backward_bound_ms": train["bound_ms"],
+            "di_ms": train["di_ms"], "di_device_ms": train["di_device_ms"],
+            "deterministic": True,
+            "shapes": {f"B={r['B']} L={r['L']} D={r['D']} causal="
+                       f"{r['causal']}": {f: r[f] for f in (
+                           f"{name}_ms", "bwd_ms", "bwd_device_ms",
+                           "library_ms", "library_device_ms",
+                           f"{name}_bound_ms")} for r in bwd_rows},
             "shape": train_shape,
         })
     full = stats_rows[0]  # every key visible, at the ring shard shape

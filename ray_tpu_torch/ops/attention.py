@@ -21,13 +21,13 @@ Port of ``ray_tpu/ops/attention.py``:
     against them; nothing on the CUDA path calls them.
   * ``dense_attention`` is the JAX package's oracle.
 
-For bf16 inputs the forward and stats kernels run on the tensor cores
-(``csrc/flash_tc.cuh``: wgmma products fed by ``cp.async``), which need
-each row of q, k and v on a 16-byte boundary; for fp32 inputs, and in the
-backward, the products run on the CUDA cores. Each kernel is built at its
-first CUDA use with ``nvcc`` into ``ray_tpu_torch/_build/``, keyed by a
-hash of its ``.cu`` and every header (``source_digest``), and loaded with
-``ctypes``. A failed build raises.
+For bf16 inputs every kernel runs on the tensor cores (``csrc/flash_tc.cuh``
+and, for the backward, ``csrc/flash_tc_bwd.cuh``: wgmma products fed by
+``cp.async``), which need each row of q, k and v on a 16-byte boundary;
+for fp32 inputs the products run on the CUDA cores. Each kernel is built
+at its first CUDA use with ``nvcc`` into ``ray_tpu_torch/_build/``, keyed
+by a hash of its ``.cu`` and every header (``source_digest``), and loaded
+with ``ctypes``. A failed build raises.
 """
 
 from __future__ import annotations
@@ -181,7 +181,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
     vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
     dof = do.float().transpose(1, 2)
-    di = (o.float() * do.float()).sum(-1).transpose(1, 2)     # [B,H,Lq]
+    di = bwd_di(o, do)                                        # [B,H,Lq]
     dq = torch.zeros(B, H, Lq, D, device=q.device)
     dk = torch.zeros(B, H, Lk, D, device=q.device)
     dv = torch.zeros(B, H, Lk, D, device=q.device)
@@ -375,17 +375,57 @@ def _check(q, k, v, causal):
             raise ValueError(f"{name} must have a unit-stride head dim")
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every row of ``t`` [B, L, H, D] starts on a 16-byte
+    boundary: its base address and its (batch, seq, head) strides, in
+    bytes, divide by 16 (an axis of extent 1 is never stepped over)."""
+    steps = [st * t.element_size() for st, n in
+             zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    return t.data_ptr() % 16 == 0 and not any(s % 16 for s in steps)
+
+
 def _check_rows_aligned(**ts):
     """The bf16 kernels copy rows in 16-byte chunks (``cp.async``), so each
-    row of each tensor must start on a 16-byte boundary: its base address
-    and its (batch, seq, head) strides, in bytes, divide by 16."""
+    row of each tensor must start on a 16-byte boundary."""
     for name, t in ts.items():
-        steps = [st * t.element_size() for st, n in
-                 zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if t.data_ptr() % 16 or any(s % 16 for s in steps):
+        if not _rows_aligned(t):
             raise ValueError(
                 f"{name}: the bf16 kernel needs rows on 16-byte boundaries, "
                 f"got address {t.data_ptr():#x} and strides {t.stride()}")
+
+
+def bwd_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """di = rowsum(o * dO), fp32 [B, H, Lq] contiguous: the backward's
+    plain reduction outside the kernels, as in Mosaic. The products are
+    taken in place in a fp32 copy of o (the same values as multiplying two
+    fp32 copies, with one copy fewer to write and read)."""
+    prod = o.to(torch.float32, copy=True).mul_(do)
+    return prod.sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_inputs(q, k, v, o, lse, do):
+    """Check what the backward kernels take beyond ``_check``, before any
+    kernel is loaded: dO and o like q, lse contiguous fp32 [B, H, Lq], and
+    for bf16 every row of q, k and v on a 16-byte boundary (else raise).
+    Returns dO, copied contiguous when autograd hands over one whose head
+    dim is strided or, for bf16, whose rows are off 16-byte boundaries."""
+    B, Lq, H, _ = q.shape
+    for name, t in (("dO", do), ("o", o)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}: got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if lse.shape != (B, H, Lq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be contiguous fp32 [B, H, Lq] = "
+                         f"{(B, H, Lq)} on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_rows_aligned(q=q, k=k, v=v)
+    if do.stride(-1) != 1 or (bf16 and not _rows_aligned(do)):
+        do = do.contiguous()
+    return do
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -424,17 +464,10 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
     """Run the dK/dV and dQ kernels; returns ``(dq, dk, dv)``."""
     global bwd_launches
     _check(q, k, v, causal)
+    do = _bwd_inputs(q, k, v, o, lse, do)
     B, Lq, H, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(f"dO must match q: {tuple(do.shape)} {do.dtype} on "
-                         f"{do.device}")
-    if do.stride(-1) != 1:  # autograd may hand over an expanded gradient
-        do = do.contiguous()
-    if lse.shape != (B, H, Lq) or lse.dtype != torch.float32 or \
-            not lse.is_contiguous():
-        raise ValueError("lse must be contiguous fp32 [B, H, Lq]")
-    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    di = bwd_di(o, do)
     lib = _load("flash_bwd")
     dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Lk, Hkv, D), dtype=k.dtype, device=q.device)

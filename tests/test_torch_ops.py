@@ -213,13 +213,13 @@ def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
 
 def test_build_key_follows_every_header(tmp_path):
     """A library's build key covers its .cu and every csrc header, so an
-    edit to a header any kernel includes (flash_tc.cuh) rebuilds it; no
-    nvcc is needed to compute it."""
+    edit to a header any kernel includes (flash_tc.cuh, or the backward's
+    flash_tc_bwd.cuh) rebuilds it; no nvcc is needed to compute it."""
     for src in (REPO / "ray_tpu_torch" / "csrc").iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     key = {n: tattn.source_digest(n, tmp_path) for n in tattn.KERNELS}
     assert key == {n: tattn.source_digest(n) for n in tattn.KERNELS}
-    for header in ("flash_tc.cuh", "flash_common.cuh"):
+    for header in ("flash_tc.cuh", "flash_tc_bwd.cuh", "flash_common.cuh"):
         path = tmp_path / header
         path.write_bytes(path.read_bytes() + b"\n// edited\n")
         edited = {n: tattn.source_digest(n, tmp_path) for n in tattn.KERNELS}
@@ -251,6 +251,77 @@ def test_bf16_kernels_take_only_rows_on_16_byte_boundaries():
     # an axis of extent 1 is never stepped over: its stride is free
     tattn._check_rows_aligned(v=x[:1, :1].as_strided((1, 1, 8, 64),
                                                      (3, 5, 128, 1)))
+
+
+def _bwd_args(dtype=torch.bfloat16, B=2, L=64, H=4, Hkv=2, D=64):
+    q = torch.zeros(B, L, H, D, dtype=dtype)
+    k, v = (torch.zeros(B, L, Hkv, D, dtype=dtype) for _ in range(2))
+    lse = torch.zeros(B, H, L)
+    return q, k, v, torch.zeros_like(q), lse, torch.ones_like(q)
+
+
+def test_bwd_inputs_are_checked_and_prepared_on_the_cpu():
+    """The backward wrapper's checks run on any device: dO and o must match
+    q, lse must be contiguous fp32 [B, H, Lq], bf16 q, k and v must have
+    rows on 16-byte boundaries; a dO whose rows are off them, or whose head
+    dim is strided, comes back as a contiguous copy, an aligned one as it
+    is."""
+    q, k, v, o, lse, do = _bwd_args()
+    assert tattn._bwd_inputs(q, k, v, o, lse, do) is do
+    bad = {"dO shape": dict(do=do[:, :32]), "dO dtype": dict(do=do.float()),
+           "o shape": dict(o=o[:1]), "lse shape": dict(lse=lse[:, :2]),
+           "lse dtype": dict(lse=lse.double()),
+           "lse layout": dict(lse=lse.transpose(1, 2).contiguous()
+                              .transpose(1, 2))}
+    for what, change in bad.items():
+        args = dict(dict(q=q, k=k, v=v, o=o, lse=lse, do=do), **change)
+        with pytest.raises(ValueError, match="must"):
+            tattn._bwd_inputs(**args)
+    wide = torch.zeros(2, 64, 4, 100, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        tattn._bwd_inputs(wide[..., :64], k, v, o, lse, do)
+    for odd in (torch.ones(2, 64, 4, 65, dtype=torch.bfloat16)[..., 1:],
+                torch.ones(2, 64, 64, 4, dtype=torch.bfloat16)
+                .transpose(2, 3)):
+        got = tattn._bwd_inputs(q, k, v, o, lse, odd)
+        assert got is not odd and got.is_contiguous()
+        assert tattn._rows_aligned(got) and torch.equal(got, odd)
+    # fp32 rows are read element by element: only a strided head dim is
+    # copied
+    q, k, v, o, lse, do = _bwd_args(torch.float32)
+    off = torch.ones(2, 64, 4, 65)[..., 1:]
+    assert tattn._bwd_inputs(q, k, v, o, lse, off) is off
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_di_is_the_fp32_row_dot_and_leaves_o_alone(dtype):
+    """di = rowsum(o * dO) in fp32, [B, H, L] contiguous, bit for bit the
+    product of two fp32 copies; o is not written (for fp32, o.float() is
+    o itself)."""
+    g = torch.Generator().manual_seed(9)
+    o, do = (torch.randn(2, 40, 4, 64, generator=g).to(dtype)
+             for _ in range(2))
+    keep = o.clone()
+    got = tattn.bwd_di(o, do)
+    want = (o.float() * do.float()).sum(-1).transpose(1, 2)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, want) and torch.equal(o, keep)
+
+
+def test_bwd_launch_checks_inputs_before_loading_a_kernel(monkeypatch):
+    """A bad dO, lse or bf16 row raises before any kernel library is
+    loaded (the device check is bypassed to run on the CPU)."""
+    monkeypatch.setattr(tattn, "_check", lambda *a: None)
+    monkeypatch.setattr(tattn, "_load",
+                        lambda name: pytest.fail("kernel load"))
+    q, k, v, o, lse, do = _bwd_args()
+    with pytest.raises(ValueError, match="dO must match"):
+        tattn._launch_bwd(q, k, v, o, lse, do[:, :8], True, 0.125)
+    with pytest.raises(ValueError, match="lse"):
+        tattn._launch_bwd(q, k, v, o, lse.double(), do, True, 0.125)
+    off_k = torch.zeros(2, 64, 2, 72, dtype=torch.bfloat16)[..., 1:65]
+    with pytest.raises(ValueError, match="16-byte"):
+        tattn._launch_bwd(q, off_k, v, o, lse, do, True, 0.125)
 
 
 # -------------------------------------------------- package boundaries

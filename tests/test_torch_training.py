@@ -98,8 +98,21 @@ def _attn_inputs(seed, B, L, H, Hkv, D):
             _randn(rng, B, L, Hkv, D), _randn(rng, B, L, H, D))
 
 
+# The bf16 backward kernels' (query, key) tiles by head dim
+# (csrc/flash_tc_bwd.cuh): the dK/dV kernel's 128 keys (64 where its grid
+# would be short) with query tiles of 64 or 32 rows, the dQ kernel's 128
+# query rows with key tiles of 32 or 64.
+BWD_TILES = {"dkdv": {64: (64, 128), 128: (32, 128)},
+             "dkdv64": {64: (64, 64), 128: (32, 64)},
+             "dq": {64: (128, 32), 128: (128, 64)}}
+
+
+@pytest.mark.parametrize("tiles", [None, "dkdv", "dkdv64", "dq"])
 @pytest.mark.parametrize("B,L,H,Hkv,D,causal", ATTN_CASES)
-def test_plain_flash_bwd_matches_jax_grad_of_dense(B, L, H, Hkv, D, causal):
+def test_plain_flash_bwd_matches_jax_grad_of_dense(B, L, H, Hkv, D, causal,
+                                                   tiles):
+    """In its default tiles and in each bf16 kernel's (query, key) tiles
+    (BWD_TILES)."""
     q, k, v, do = _attn_inputs(0, B, L, H, Hkv, D)
     _, vjp = jax.vjp(lambda a, b, c: jattn.dense_attention(
         a, b, c, causal=causal), *map(jnp.asarray, (q, k, v)))
@@ -107,8 +120,12 @@ def test_plain_flash_bwd_matches_jax_grad_of_dense(B, L, H, Hkv, D, causal):
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     o, lse = tattn.flash_attention_plain(tq, tk, tv, causal=causal,
                                          return_lse=True)
+    block = {}
+    if tiles:
+        block_q, block_k = BWD_TILES[tiles][D]
+        block = dict(block_q=block_q, block_k=block_k)
     got = tattn.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo,
-                                          causal=causal)
+                                          causal=causal, **block)
     for g, w in zip(got, want):
         assert g.shape == w.shape
         _close(g, w, GRAD_TOL)
