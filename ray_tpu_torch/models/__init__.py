@@ -15,10 +15,13 @@ from .llama import (
 
 from .convert import params_from_numpy, params_to_numpy, trainable
 from .engine import GenerationEngine
+from .paged import PagedEngine
+from .speculative import generate_speculative, truncated_draft
 
 __all__ = [
     "LlamaConfig", "LLAMA3_8B", "LLAMA3_1B", "LLAMA_DEBUG", "init_params",
     "forward", "forward_hidden", "loss_fn", "next_token_targets",
     "flops_per_token", "generate_greedy", "generate_sample",
-    "GenerationEngine", "params_from_numpy", "params_to_numpy", "trainable",
+    "GenerationEngine", "PagedEngine", "generate_speculative",
+    "truncated_draft", "params_from_numpy", "params_to_numpy", "trainable",
 ]

@@ -253,16 +253,24 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     if chunked_vocab > 0:
         x = forward_hidden(params, tokens, cfg, remat=remat,
                            attn_impl=attn_impl)
-        head = _head(params, cfg)
-        if isinstance(head, Q8):
-            # the chunked loss streams its own products from dense weights
-            head = head.w.to(x.dtype) * head.s
-        B, L, D = x.shape
-        return chunked_cross_entropy(x.reshape(B * L, D), head,
-                                     targets.reshape(B * L), chunked_vocab)
+        return chunked_head_loss(params, x, targets, cfg, chunked_vocab)
     logits = forward(params, tokens, cfg, remat=remat, attn_impl=attn_impl)
     loss, _ = cross_entropy_loss(logits, targets)
     return loss
+
+
+def chunked_head_loss(params: Dict[str, Any], x: torch.Tensor,
+                      targets: torch.Tensor, cfg: LlamaConfig,
+                      chunked_vocab: int) -> torch.Tensor:
+    """Mean loss of the final-norm hidden states ``x`` [B, L, D] through
+    the head, the vocab streamed in chunks of ``chunked_vocab``."""
+    head = _head(params, cfg)
+    if isinstance(head, Q8):
+        # the chunked loss streams its own products from dense weights
+        head = head.w.to(x.dtype) * head.s
+    B, L, D = x.shape
+    return chunked_cross_entropy(x.reshape(B * L, D), head,
+                                 targets.reshape(B * L), chunked_vocab)
 
 
 def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:

@@ -19,7 +19,11 @@ Port of ``ray_tpu/ops/attention.py``:
     ``flash_attention_stats_plain`` are the same blockwise fp32 math in
     PyTorch. The CPU tests run them, and the chip check holds the kernels
     against them; nothing on the CUDA path calls them.
-  * ``dense_attention`` is the JAX package's oracle.
+  * ``dense_attention`` is the JAX package's oracle. ``flash_attention``
+    sends a CUDA tensor there when ``kernel_takes`` says the kernels do not
+    take its shape, dtype or options (a head dim outside {64, 128}, a dtype
+    other than fp32 and bf16, segment ids), as the JAX package sends what
+    its TPU kernel does not tile, and counts it in ``dense_routes``.
 
 For bf16 inputs every kernel runs on the tensor cores (``csrc/flash_tc.cuh``
 and, for the backward, ``csrc/flash_tc_bwd.cuh``: wgmma products fed by
@@ -64,6 +68,9 @@ launches = 0
 bwd_launches = 0
 #: Launches of the stats kernel made by ``flash_attention_stats``.
 stats_launches = 0
+#: Calls of ``flash_attention`` on CUDA tensors that ``kernel_takes``
+#: declined and ``dense_attention`` ran instead.
+dense_routes = 0
 
 _libs: dict = {}
 _lib_lock = threading.Lock()
@@ -297,24 +304,39 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def kernel_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 segment_ids: Optional[torch.Tensor] = None) -> bool:
+    """Whether the flash kernels take these inputs, from their shapes,
+    dtypes and options alone (no device is read): a head dim in {64, 128},
+    q, k and v all fp32 or all bf16, and no ``segment_ids``. Any L is
+    taken. Rows off 16-byte boundaries are a layout fault the launch
+    raises on, not a shape the kernels decline."""
+    return (segment_ids is None and q.shape[-1] in _HEAD_DIMS
+            and q.dtype in _DTYPE_CODES and k.dtype == q.dtype
+            and v.dtype == q.dtype)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     segment_ids: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Flash attention, [B, L, H, D], GQA-aware, differentiable.
 
-    A CUDA tensor goes to the Hopper kernels; shapes, types or options they
-    do not take raise. A CPU tensor runs the plain versions
-    (``dense_attention`` when ``segment_ids`` is given, as the JAX package
-    does off the TPU). Where no gradient is wanted (``torch.no_grad``, or
-    no input requires one) only the forward runs, without the row
-    statistics the backward needs."""
+    A CUDA tensor goes to the Hopper kernels when ``kernel_takes`` holds,
+    else to ``dense_attention`` (counted in ``dense_routes``), as the JAX
+    package sends what its kernel does not tile. A CPU tensor runs the
+    plain versions (``dense_attention`` when ``segment_ids`` is given, as
+    the JAX package does off the TPU). Where no gradient is wanted
+    (``torch.no_grad``, or no input requires one) only the forward runs,
+    without the row statistics the backward needs."""
+    global dense_routes
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda" and not kernel_takes(q, k, v, segment_ids):
+        dense_routes += 1
+        return dense_attention(q, k, v, causal=causal, scale=scale,
+                               segment_ids=segment_ids)
     if segment_ids is not None:
-        if q.device.type == "cuda":
-            raise NotImplementedError(
-                "segment_ids are not supported by the CUDA flash kernel")
         return dense_attention(q, k, v, causal=causal, scale=scale,
                                segment_ids=segment_ids)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -14,8 +14,10 @@ The block step is one of:
     merged statistics, the block gradients chunked over keys, and dK/dV
     rotating home with their blocks), as the JAX package's custom VJP is
     plain ``jnp``;
-  * ``"auto"``: flash on CUDA, dense elsewhere. The TPU's VMEM gate does
-    not carry over: the kernel streams K/V tiles.
+  * ``"auto"``: flash on CUDA when ``ops.attention.kernel_takes`` holds
+    for the shards, dense elsewhere, as the JAX package's gate sends what
+    its kernel does not tile to dense. The TPU's VMEM gate does not carry
+    over: the kernel streams K/V tiles.
 
 Where the ranks run (``parallel/mesh.py``): over a process group each rank
 passes its own shards and a rotation is ``batch_isend_irecv`` to the next
@@ -33,7 +35,7 @@ from typing import List, Optional
 
 import torch
 
-from ..ops.attention import NEG_INF, flash_attention_stats
+from ..ops.attention import NEG_INF, flash_attention_stats, kernel_takes
 from . import collectives
 from .mesh import Mesh, rank_shards
 
@@ -234,7 +236,9 @@ class _RingFlash(torch.autograd.Function):
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mesh: Mesh, axis: str = "sp", causal: bool = False,
                    scale: Optional[float] = None,
-                   block_impl: str = "auto") -> torch.Tensor:
+                   block_impl: str = "auto",
+                   segment_ids: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Exact attention with K/V rotating around the ``axis`` ring.
 
     On a process-group mesh q, k, v are this rank's shards
@@ -242,11 +246,19 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on a one-device mesh they are the global [B, L, H, D], cut into the n
     ranks' shards here. K/V may carry fewer heads (GQA). ``causal`` masks
     in global positions. ``block_impl`` picks the block step (module
-    docstring). Returns [B, L_q, H, D] in q's dtype, differentiable."""
+    docstring). ``segment_ids`` are not applied and raise. Returns
+    [B, L_q, H, D] in q's dtype, differentiable."""
+    if segment_ids is not None:
+        raise NotImplementedError(
+            "ring_attention does not apply segment masking; use "
+            "dense_attention(segment_ids=...) or pad documents apart "
+            "(silently ignoring the mask would cross document "
+            "boundaries)")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if block_impl == "auto":
-        block_impl = "flash" if q.device.type == "cuda" else "dense"
+        block_impl = ("flash" if q.device.type == "cuda"
+                      and kernel_takes(q, k, v) else "dense")
     if block_impl == "flash":
         return _RingFlash.apply(q, k, v, mesh, axis, causal, float(scale))
     if block_impl != "dense":

@@ -2,9 +2,11 @@
 
 Port of ``ray_tpu/serve/llm.py``. Unary calls get the full token list,
 streaming calls get tokens as the engine emits them, and concurrent
-requests share every decode step through one engine pump. What needs the
-runtime tier (a Serve deployment, the object plane) or a later model
-slice (the paged cache, speculative decoding) raises
+requests share every decode step through one engine pump. The engine is
+the dense-slot ``GenerationEngine`` or, with ``kv_cache="paged"``, the
+page-pool ``PagedEngine``; with a ``draft_factory``, requests that ask for
+``{"speculative": true}`` run batch-1 speculative decoding beside it. What
+needs the runtime tier (a Serve deployment, the object plane) raises
 ``NotImplementedError`` until it is ported.
 """
 
@@ -19,6 +21,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..models.engine import GenerationEngine
+from ..models.paged import PagedEngine
+from ..models.speculative import generate_speculative
 from ..ops.quant import Q8
 from ..util import events as plane_events
 
@@ -36,35 +40,61 @@ def _to_device(tree: Any, device: torch.device) -> Any:
 
 
 class LLMServer:
-    """Async callable hosting one :class:`GenerationEngine`.
+    """Async callable hosting one engine.
 
     ``model_factory() -> (params, cfg)`` builds the weights on ``device``.
     Requests: ``{"prompt": [token ids], "max_new_tokens": n, "eos_id":
-    optional, "temperature", "top_k", "top_p", "seed", "stream": bool}``.
+    optional, "temperature", "top_k", "top_p", "seed", "stream": bool}``,
+    or ``{"prompt", "max_new_tokens", "speculative": true, "k": optional}``
+    when ``draft_factory(params, cfg) -> (draft_params, draft_cfg)`` is
+    given (for example ``lambda p, c: truncated_draft(p, c, n_layers)``).
+    ``kv_cache="paged"`` hosts a ``PagedEngine`` with ``num_pages``,
+    ``page_size``, ``enable_prefix_cache`` and ``kv_dtype``.
     """
 
     def __init__(self, model_factory, *, max_slots: int = 4,
                  max_len: int = 512, kv_cache: str = "dense",
-                 draft_factory=None, device=None):
-        if kv_cache == "paged":
-            raise NotImplementedError(
-                "kv_cache='paged' waits for the port of models/paged.py "
-                "(ROADMAP A2)")
-        if kv_cache != "dense":
+                 num_pages: int = 64, page_size: int = 16,
+                 enable_prefix_cache: bool = False,
+                 kv_dtype: str = "model",
+                 draft_factory=None, draft_k: int = 4, device=None):
+        if kv_cache not in ("dense", "paged"):
             raise ValueError(f"kv_cache must be 'dense' or 'paged', "
                              f"got {kv_cache!r}")
-        if draft_factory is not None:
-            raise NotImplementedError(
-                "speculative decoding waits for the port of "
-                "models/speculative.py (ROADMAP A2)")
         params, cfg = model_factory()
-        self.engine = GenerationEngine(params, cfg, max_slots=max_slots,
-                                       max_len=max_len, device=device)
+        if kv_cache == "paged":
+            self.engine = PagedEngine(
+                params, cfg, max_slots=max_slots, num_pages=num_pages,
+                page_size=page_size, max_len=max_len,
+                enable_prefix_cache=enable_prefix_cache, kv_dtype=kv_dtype,
+                device=device)
+        else:
+            self.engine = GenerationEngine(params, cfg, max_slots=max_slots,
+                                           max_len=max_len, device=device)
+        self._cfg = cfg
+        self._max_len = max_len
+        self._max_slots = max_slots
+        # Speculative decoding: requests that opt in run the batch-1
+        # verify-k loop beside the engine, at most max_slots at a time
+        # (each holds its own target and draft caches).
+        self._draft_factory = draft_factory
+        self._spec = None
+        if draft_factory is not None:
+            self._spec = (params, cfg, *draft_factory(params, cfg), draft_k)
+        self._spec_sem: Optional[asyncio.Semaphore] = None
+        self._spec_inflight = 0
+        self._spec_peak = 0
+        self._spec_requests = 0
+        self._spec_rounds = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self._weights_version = 1
         self._queues: Dict[str, asyncio.Queue] = {}
         self._loop_task: Optional[asyncio.Task] = None
         # Serializes engine steps (in an executor thread) against a weight
-        # swap from another thread: the swap lands between steps.
+        # swap from another thread: the swap and the prefix cache's
+        # invalidation land between steps, so no admission allocates a
+        # page just freed or registers old-weight pages after the wipe.
         self._engine_lock = threading.Lock()
 
     # ----------------------------------------------------- engine pump
@@ -135,9 +165,7 @@ class LLMServer:
         if body.get("_admin"):
             return self._admin(body)
         if body.get("speculative"):
-            raise NotImplementedError(
-                "speculative requests wait for the port of "
-                "models/speculative.py (ROADMAP A2)")
+            return await self._speculative(body)
         if body.get("stream"):
             return self._stream(body)
         t0 = time.time()
@@ -191,18 +219,70 @@ class LLMServer:
         finally:
             self._queues.pop(rid, None)
 
+    async def _speculative(self, body: dict):
+        """Batch-1 speculative decode. The response carries the round
+        stats (acceptance rate, tokens per target forward), so callers see
+        the draft's real speedup."""
+        if self._spec is None:
+            raise ValueError(
+                "speculative request but no draft_factory configured")
+        params, cfg, dparams, dcfg, k = self._spec
+        prompt = [int(t) for t in body["prompt"]]
+        max_new = int(body.get("max_new_tokens", 32))
+        k = int(body.get("k", k))
+        # The speculative caches hold prompt + max_new + k + 1 positions.
+        total = len(prompt) + max_new + k + 1
+        if k < 1 or total > self._max_len:
+            raise ValueError(
+                f"prompt+max_new_tokens+k+1 = {total} exceeds engine "
+                f"max_len {self._max_len} (or k < 1)")
+        if self._spec_sem is None:
+            self._spec_sem = asyncio.Semaphore(self._max_slots)
+        loop = asyncio.get_running_loop()
+        async with self._spec_sem:
+            self._spec_inflight += 1
+            self._spec_peak = max(self._spec_peak, self._spec_inflight)
+            try:
+                toks, stats = await loop.run_in_executor(
+                    None, lambda: generate_speculative(
+                        params, dparams,
+                        torch.tensor([prompt], device=self.engine.device),
+                        cfg, dcfg, max_new=max_new, k=k))
+            finally:
+                self._spec_inflight -= 1
+        self._spec_requests += 1
+        self._spec_rounds += stats["rounds"]
+        self._spec_drafted += stats["drafted"]
+        self._spec_accepted += stats["accepted"]
+        out = toks[0].tolist()  # already on the host
+        return {"tokens": out, "num_tokens": len(out),
+                "speculative_stats": stats}
+
     # ------------------------------------------- admin / weight refresh
     def _admin(self, body: dict):
         op = body["_admin"]
         if op == "stats":
-            return {"weights_version": self._weights_version,
-                    "active_requests": len(self._queues)}
+            return {
+                "weights_version": self._weights_version,
+                "active_requests": len(self._queues),
+                "spec_requests": self._spec_requests,
+                "spec_inflight": self._spec_inflight,
+                "spec_inflight_peak": self._spec_peak,
+                "spec_rounds": self._spec_rounds,
+                "spec_drafted": self._spec_drafted,
+                "spec_accepted": self._spec_accepted,
+                "spec_acceptance_rate":
+                    self._spec_accepted / max(self._spec_drafted, 1),
+                "spec_admission_bound": self._max_slots,
+            }
         raise ValueError(f"unknown _admin op {op!r}")
 
     def reconfigure(self, user_config) -> None:
         """Live weight refresh: ``{"weights": tree}`` swaps the engine's
-        parameters between two steps without dropping in-flight
-        requests; it waits for a running step, so call it off the event
+        parameters between two steps without dropping in-flight requests,
+        drops the paged engine's prefix cache (its pages hold K/V of the
+        old weights) and rebuilds the speculative draft from the new
+        weights. It waits for a running step, so call it off the event
         loop while requests are in flight. ``weights_ref`` needs the
         object plane and raises."""
         if not isinstance(user_config, dict):
@@ -217,7 +297,15 @@ class LLMServer:
         params = _to_device(params, self.engine.device)
         with self._engine_lock:
             self.engine.params = params
+            if isinstance(self.engine, PagedEngine):
+                self.engine.invalidate_prefix_cache()
             self._weights_version += 1
+        if self._spec is not None:
+            # One tuple rebind: a speculative request reads the old pair or
+            # the new one, never a mix.
+            self._spec = (params, self._cfg,
+                          *self._draft_factory(params, self._cfg),
+                          self._spec[4])
 
 
 def build_llm_app(model_factory, **kwargs):

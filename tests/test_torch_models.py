@@ -22,6 +22,7 @@ from ray_tpu.models import llama as jllama
 from ray_tpu.ops import quant as jquant
 from ray_tpu_torch.models import engine as tengine
 from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.models import paged as tpaged
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.ops import layers as tlayers
 from ray_tpu_torch.ops.quant import Q8
@@ -291,8 +292,9 @@ def test_server_unary_streaming_and_concurrent(model):
     assert names.count("serve.req.first_token") == 5
     assert names.count("serve.req.tokens_done") == 4
     assert not dropped
-    assert srv._admin({"_admin": "stats"}) == {"weights_version": 1,
-                                               "active_requests": 0}
+    stats = srv._admin({"_admin": "stats"})
+    assert (stats["weights_version"], stats["active_requests"],
+            stats["spec_requests"]) == (1, 0, 0)
 
 
 def test_server_rejected_submit_leaks_no_queue(model):
@@ -353,15 +355,165 @@ def test_server_reconfigure_swaps_weights(model):
 
 
 def test_server_unported_paths_raise(model):
+    """What needs the runtime tier raises: the object plane and the Serve
+    runtime. The paged cache and speculative decoding are ported (the
+    tests below)."""
     _, tparams = model
-    with pytest.raises(NotImplementedError, match="paged"):
-        _server(tparams, kv_cache="paged")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        _server(tparams, draft_factory=lambda p, c: (p, c))
     srv = _server(tparams)
     with pytest.raises(NotImplementedError, match="object plane"):
         srv.reconfigure({"weights_ref": object()})
-    with pytest.raises(NotImplementedError, match="speculative"):
-        asyncio.run(srv({"prompt": [1], "speculative": True}))
     with pytest.raises(NotImplementedError, match="Serve runtime"):
         tllm.build_llm_app(lambda: (tparams, TCFG))
+    with pytest.raises(ValueError, match="kv_cache"):
+        _server(tparams, kv_cache="ring")
+
+
+def _draft(p, c):
+    from ray_tpu_torch.models.speculative import truncated_draft
+
+    return truncated_draft(p, c, 1)
+
+
+SERVE_REQS = {"a": ([4, 5, 6, 7], 8), "b": ([9], 12), "c": ([11, 12], 5),
+              "d": (list(range(30, 43)), 6)}
+
+
+async def _serve_mix(srv, speculative=False):
+    """A unary request, four concurrent ones and a streamed one."""
+    extra = {"speculative": True} if speculative else {}
+    unary = await srv({"prompt": [1, 2, 3], "max_new_tokens": 10, **extra})
+    outs = await asyncio.gather(*[
+        srv({"prompt": p, "max_new_tokens": n, **extra})
+        for p, n in SERVE_REQS.values()])
+    if speculative:
+        return unary, dict(zip(SERVE_REQS, outs)), None
+    stream = await srv({"prompt": [20, 21, 22], "max_new_tokens": 6,
+                        "stream": True})
+    return unary, dict(zip(SERVE_REQS, outs)), [t async for t in stream]
+
+
+@pytest.fixture(scope="module")
+def dense_served(model):
+    _, tparams = model
+    return asyncio.run(_serve_mix(_server(tparams)))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kv_cache="paged", num_pages=24, page_size=8),
+    dict(kv_cache="paged", num_pages=8, page_size=4,
+         enable_prefix_cache=True),
+], ids=["paged", "paged_prefix_preempting"])
+def test_paged_server_matches_dense_server(model, dense_served, kw):
+    """Unary, concurrent and streamed requests through a PagedEngine give
+    the dense server's tokens. The second pool is small enough to preempt
+    in flight, and the preempted request's resume hits its own prompt
+    pages in the prefix cache."""
+    jparams, tparams = model
+    srv = _server(tparams, **kw)
+    assert isinstance(srv.engine, tpaged.PagedEngine)
+    unary, outs, streamed = asyncio.run(_serve_mix(srv))
+    d_unary, d_outs, d_streamed = dense_served
+    assert unary == d_unary == {"tokens": _jref(jparams, [1, 2, 3], 10),
+                                "num_tokens": 10}
+    assert outs == d_outs and streamed == d_streamed
+    assert srv.engine.prefills >= 6 and not srv.engine.has_work()
+    small = kw["num_pages"] == 8
+    assert (srv.engine.preemptions > 0) == small
+    assert (srv.engine.prefix_hits > 0) == small
+
+
+def test_speculative_server_matches_dense_server(model, dense_served):
+    """{"speculative": true} requests, one alone and four at once, give the
+    dense server's tokens with the round stats; a request the caches
+    cannot hold and a server without a draft raise ValueError."""
+    _, tparams = model
+    srv = _server(tparams, draft_factory=_draft, draft_k=3)
+    unary, outs, _ = asyncio.run(_serve_mix(srv, speculative=True))
+    d_unary, d_outs, _ = dense_served
+    assert unary["tokens"] == d_unary["tokens"]
+    assert {r: o["tokens"] for r, o in outs.items()} == \
+        {r: o["tokens"] for r, o in d_outs.items()}
+    stats = [unary["speculative_stats"]] + \
+        [o["speculative_stats"] for o in outs.values()]
+    assert all(s["host_fetches"] == s["rounds"] + 1 for s in stats)
+    adm = srv._admin({"_admin": "stats"})
+    assert adm["spec_requests"] == 5 and adm["spec_inflight"] == 0
+    assert 1 <= adm["spec_inflight_peak"] <= adm["spec_admission_bound"] == 3
+    assert adm["spec_rounds"] == sum(s["rounds"] for s in stats)
+    assert adm["spec_drafted"] == 3 * adm["spec_rounds"]
+    assert adm["spec_accepted"] == sum(s["accepted"] for s in stats)
+    k1 = asyncio.run(srv({"prompt": [1, 2, 3], "max_new_tokens": 10,
+                          "speculative": True, "k": 1}))
+    assert k1["tokens"] == d_unary["tokens"]
+    assert k1["speculative_stats"]["drafted"] == \
+        k1["speculative_stats"]["rounds"]
+    with pytest.raises(ValueError, match="exceeds engine max_len"):
+        asyncio.run(srv({"prompt": list(range(81)), "max_new_tokens": 12,
+                         "speculative": True}))
+    with pytest.raises(ValueError, match="no draft_factory"):
+        asyncio.run(_server(tparams)({"prompt": [1], "speculative": True}))
+
+
+def test_admin_stats_keys_match_the_reference(model):
+    from ray_tpu.serve import llm as jllm
+
+    jparams, tparams = model
+    jsrv = jllm.LLMServer(lambda: (jparams, JCFG), max_slots=3, max_len=96)
+    want = jsrv._admin({"_admin": "stats"})
+    for kw in ({}, {"kv_cache": "paged", "draft_factory": _draft}):
+        got = _server(tparams, **kw)._admin({"_admin": "stats"})
+        assert got == want
+
+
+def test_reconfigure_invalidates_the_prefix_cache(model):
+    """After a weight swap a prompt with a cached prefix cannot hit pages
+    computed with the old weights, and the draft follows the new weights."""
+    _, tparams = model
+    srv = _server(tparams, kv_cache="paged", num_pages=24, page_size=4,
+                  enable_prefix_cache=True, draft_factory=_draft)
+    prompt = list(range(40, 52)) + [7]   # 3 full pages
+    asyncio.run(srv({"prompt": prompt, "max_new_tokens": 4}))
+    assert srv.engine._prefix and srv.engine.prefix_misses == 1
+    jnew = jllama.init_params(JCFG, jax.random.PRNGKey(9))
+    srv.reconfigure({"weights": params_from_numpy(to_numpy(jnew),
+                                                  device=CPU)})
+    assert not srv.engine._prefix
+    got = asyncio.run(srv({"prompt": prompt, "max_new_tokens": 6}))
+    want = jllama.generate_greedy(jnew, jnp.asarray([prompt], jnp.int32),
+                                  JCFG, max_new=6)[0].tolist()
+    assert got["tokens"] == want
+    assert srv.engine.prefix_hits == 0 and srv.engine.prefix_misses == 2
+    spec = asyncio.run(srv({"prompt": prompt, "max_new_tokens": 6,
+                            "speculative": True}))
+    assert spec["tokens"] == want
+    assert srv._spec[0] is srv.engine.params
+    assert srv._admin({"_admin": "stats"})["weights_version"] == 2
+
+
+def test_paged_server_failed_step_frees_every_page(model):
+    """A failed step on the paged server raises in every waiting request
+    and returns every page its slots held; the next request is served."""
+    jparams, tparams = model
+    srv = _server(tparams, kv_cache="paged", num_pages=24, page_size=8)
+    eng = srv.engine
+
+    def broken_step():
+        eng._admit()  # pages are taken, then the step fails
+        raise RuntimeError("flash_fwd failed to launch")
+
+    async def run():
+        eng.step = broken_step
+        res = await asyncio.wait_for(asyncio.gather(
+            srv({"prompt": list(range(1, 12)), "max_new_tokens": 5}),
+            srv({"prompt": [4], "max_new_tokens": 5}),
+            return_exceptions=True), timeout=30)
+        del eng.step
+        return res, await asyncio.wait_for(
+            srv({"prompt": [1, 2, 3], "max_new_tokens": 5}), timeout=30)
+
+    res, after = asyncio.run(run())
+    assert all(isinstance(r, RuntimeError) for r in res), res
+    assert after["tokens"] == _jref(jparams, [1, 2, 3], 5)
+    idle = [e[0] for e in eng._prefix.values() if e[1] == 0]
+    assert sorted(eng.free_pages + idle) == list(range(1, 24))
+    assert srv._queues == {} and not eng.has_work()

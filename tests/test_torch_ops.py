@@ -196,6 +196,45 @@ def test_dense_oracle_offsets_and_segments_match_jax():
     _close(got, want)
 
 
+@pytest.mark.parametrize("d,dtype,kv_dtype,seg,takes", [
+    (16, torch.float32, None, False, False),     # LLAMA_DEBUG's heads
+    (32, torch.bfloat16, None, False, False),
+    (64, torch.float32, None, False, True),
+    (128, torch.bfloat16, None, False, True),
+    (64, torch.float16, None, False, False),
+    (64, torch.bfloat16, torch.float32, False, False),
+    (128, torch.float32, None, True, False),
+], ids=["d16", "d32", "d64", "d128", "fp16", "mixed", "segments"])
+def test_kernel_takes_decides_kernel_or_dense(d, dtype, kv_dtype, seg,
+                                              takes):
+    """The predicate that sends a CUDA call to the kernels or to
+    dense_attention reads shapes, dtypes and options only, so it runs on
+    CPU tensors; a ragged L (40) is the kernels'."""
+    q = torch.zeros(2, 40, 4, d, dtype=dtype)
+    k = torch.zeros(2, 40, 2, d, dtype=kv_dtype or dtype)
+    seg_ids = torch.zeros(2, 40, dtype=torch.long) if seg else None
+    assert tattn.kernel_takes(q, k, k, seg_ids) is takes
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_cpu_calls_are_no_dense_routes(monkeypatch, d):
+    """On the CPU the plain versions run whatever the shape: only a CUDA
+    call that the kernels decline counts as a dense route. The result is
+    JAX's flash_attention's (dense off the TPU)."""
+    monkeypatch.setattr(tattn, "dense_routes", 0)
+    q, k, v = _qkv(6, lq=24, lk=24, hkv=2, d=d)
+    seg = np.repeat(np.arange(3), 8)[None].repeat(B, 0)
+    for ids in (None, seg):
+        want = jattn.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+            segment_ids=None if ids is None else jnp.asarray(ids))
+        got = tattn.flash_attention(
+            *map(torch.from_numpy, (q, k, v)), causal=True,
+            segment_ids=None if ids is None else torch.from_numpy(ids))
+        _close(got, want)
+    assert tattn.dense_routes == 0
+
+
 def test_plain_flash_rejects_causal_with_unequal_lengths():
     q, k, v = _qkv(4, lq=8, lk=16)
     with pytest.raises(ValueError, match="Lq == Lk"):

@@ -50,6 +50,7 @@ WORLD = 4
 TCFG = dict(vocab_size=96, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
             d_ff=128, max_seq_len=64)
 LLAMA_TOKENS = (2, 32)          # B, L: 8 positions a shard at sp=4
+CHUNK = 40                      # the chunked loss's vocab chunk: 40+40+16
 RING_SHAPE = (1, 64, 4, 16)     # B, L, H, D
 ULY_SHAPE = (2, 64, 8, 16)
 RING_CASES = [(2, True), (2, False), (1, True), (1, False)]  # kvh, causal
@@ -367,6 +368,51 @@ def test_ulysses_exchanges_move_kv_heads_only(monkeypatch):
     assert back[0] == fwd[0]
 
 
+def test_ring_segment_ids_raise_and_auto_picks_dense_on_cpu():
+    """The ring applies no segment mask, so segment ids raise as in JAX;
+    off CUDA ``auto`` is the dense block step, bit for bit."""
+    mesh = make_mesh(MeshSpec(sp=SP), device=CPU)
+    q, k, v, _ = map(torch.from_numpy, _ring_inputs(2, True))
+    with pytest.raises(NotImplementedError, match="segment masking"):
+        tring.ring_attention(q, k, v, mesh, causal=True,
+                             segment_ids=torch.zeros(1, 64, dtype=torch.long))
+    auto = tring.ring_attention(q, k, v, mesh, causal=True)
+    assert torch.equal(auto, tring.ring_attention(q, k, v, mesh, causal=True,
+                                                  block_impl="dense"))
+
+
+def test_one_device_sharded_loss_is_loss_fn():
+    """On a one-device mesh the share is the whole loss: with remat and the
+    chunked loss, sharded_loss_fn's loss and gradients are loss_fn's."""
+    import jax
+    from ray_tpu.models import llama as jllama
+
+    jcfg = jllama.LlamaConfig(**TCFG, dtype=jax.numpy.float32)
+    tree = jax.tree_util.tree_map(
+        np.asarray, jllama.init_params(jcfg, jax.random.PRNGKey(1)))
+    cfg = tllama.LlamaConfig(**TCFG, dtype=torch.float32)
+    mesh = make_mesh(MeshSpec(sp=SP), device=CPU)
+    tokens = torch.from_numpy(_llama_tokens())
+    results = []
+    for sharded in (True, False):
+        params = params_from_numpy(tree, device=CPU)
+        leaves = trainable(params)
+        ring = make_ring_attention(mesh, block_impl="flash")
+        if sharded:
+            loss = ttrain.sharded_loss_fn(params, tokens, cfg, mesh,
+                                          attn_impl=ring, remat=True,
+                                          chunked_vocab=CHUNK)
+        else:
+            loss = tllama.loss_fn(params, {"tokens": tokens}, cfg,
+                                  remat=True, chunked_vocab=CHUNK,
+                                  attn_impl=ring)
+        loss.backward()
+        results.append((loss.item(), [t.grad for t in leaves]))
+    (got, got_g), (want, want_g) = results
+    assert got == want
+    assert all(torch.equal(g, w) for g, w in zip(got_g, want_g))
+
+
 def test_llama_attn_impl_and_seq_offset_match_jax():
     """``attn_impl`` replaces the attention as JAX's does (the ring gives
     the flash path's logits), and a shard run at ``seq_offset`` gives the
@@ -437,6 +483,8 @@ def _child(rank, store, out_dir, inputs):
         res["allreduce22"] = total.numpy()
         for name, m in (("sp4", mesh), ("dp2sp2", mesh22)):
             _llama(res, name, m, inputs)
+            _llama(res, f"{name}_remat_chunked", m, inputs, remat=True,
+                   chunked_vocab=CHUNK)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()
@@ -474,13 +522,13 @@ def _collectives(res, mesh, rank):
     assert torch.equal(x, torch.arange(4.0) * (rank + 1))  # left as it was
 
 
-def _llama(res, name, mesh, inputs):
+def _llama(res, name, mesh, inputs, **loss_kw):
     cfg = tllama.LlamaConfig(**TCFG, dtype=torch.float32)
     params = params_from_numpy(inputs["params"], device=CPU)
     leaves = trainable(params)
     share = ttrain.sharded_loss_fn(
         params, torch.from_numpy(inputs["tokens"]), cfg, mesh,
-        attn_impl=make_ring_attention(mesh, block_impl="flash"))
+        attn_impl=make_ring_attention(mesh, block_impl="flash"), **loss_kw)
     share.backward()
     ttrain.allreduce_grads(leaves, mesh)
     res[f"{name}_loss"] = collectives.allreduce(
@@ -566,14 +614,17 @@ def test_gloo_collectives(gloo_results):
         np.testing.assert_array_equal(res["allreduce22"], [10.0])
 
 
-@pytest.mark.parametrize("name,spec", [("sp4", dict(sp=4)),
-                                       ("dp2sp2", dict(dp=2, sp=2))])
+@pytest.mark.parametrize("name,spec", [
+    ("sp4", dict(sp=4)), ("dp2sp2", dict(dp=2, sp=2)),
+    ("sp4_remat_chunked", dict(sp=4)),
+    ("dp2sp2_remat_chunked", dict(dp=2, sp=2))])
 def test_gloo_llama_loss_and_synced_grads_match_jax(gloo_results, cpu_mesh8,
                                                     name, spec):
     """A small Llama over the group, the ring (flash block step) as its
     attention: every rank's global loss and every summed gradient against
     JAX's ``loss_fn`` and ``jax.grad`` with ``make_ring_attention`` on a
-    mesh of the same shape."""
+    mesh of the same shape; ``*_remat_chunked`` with remat and the
+    chunked-vocab loss on both sides."""
     import jax
     import jax.numpy as jnp
     from ray_tpu.models import llama as jllama
@@ -590,9 +641,10 @@ def test_gloo_llama_loss_and_synced_grads_match_jax(gloo_results, cpu_mesh8,
         return ring(q, k, v)
 
     jparams = jax.tree_util.tree_map(jnp.asarray, inputs["params"])
+    chunked = CHUNK if name.endswith("_remat_chunked") else 0
     loss, grads = jax.jit(jax.value_and_grad(lambda p: jllama.loss_fn(
         p, {"tokens": jnp.asarray(inputs["tokens"])}, jcfg,
-        attn_impl=attn_impl)))(jparams)
+        attn_impl=attn_impl, remat=True, chunked_vocab=chunked)))(jparams)
     want = {k: np.asarray(v) for k, v in _flat(grads).items()}
     for r, res in enumerate(results):
         np.testing.assert_allclose(res[f"{name}_loss"], float(loss),
