@@ -51,9 +51,10 @@ Phases, each of which raises on failure (the exit code is then not 0):
      backward's time and device time, di's plain reduction on its own, the
      plain version's time, that of scaled_dot_product_attention's backward
      (a yardstick only) by events and its device time, and the bounds; two
-     backward calls on the same inputs must give the same bits. At the
-     training shape also the forward with lse, timed and profiled beside
-     sdpa's;
+     backward calls on the same inputs must give the same bits; also at
+     the calls a rank of phase 12 makes ([2, 2048, 16/4, 64] at fsdp = 2 x
+     tp = 2, [1, 2048, 32/8, 64] at fsdp = 4). At the training shape also
+     the forward with lse, timed and profiled beside sdpa's;
   7. a small fp32 model trained on the card: the loss and every gradient
      through the kernels against the plain path on the CPU, dense and with
      remat and chunked vocab, then 3 AdamW steps against the same steps on
@@ -69,7 +70,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
      version on the same bf16 inputs at the ring shard shape of phase 11
      (B=1, Lq=Lk=2048, 32/8 heads, D=64) for every key visible, the
      diagonal block, none and a ragged pattern, then D=128 with Lq != Lk,
-     and once in fp32 with a stride-0 visible and a strided q; rows that
+     and once in fp32 with a stride-0 visible and a strided q, and in fp32
+     at a rank's blocks in phase 12 (c) (2/1 heads); rows that
      see no key must give m == NEG_INF. With its time, the plain
      version's, the bound and torch's flash attention with its row
      log-sum-exp (a yardstick only; the port never calls it), and for
@@ -88,7 +90,22 @@ Phases, each of which raises on failure (the exit code is then not 0):
      and as many through sp = 4 Ulysses (K1/K2), each with a profiled
      step; the three first losses agree within 1e-3. Then the ring's
      output and gradients at one layer's shape, held per element to
-     flash_attention's, and its forward and backward timed beside them.
+     flash_attention's, and its forward and backward timed beside them;
+ 12. sharded training (FSDP and TP): 4 processes on this card in one
+     process group, their mesh built with backend="gloo" (every
+     collective staged through host memory). (c) a small fp32 model (head
+     dim 64, 4/2 heads) on tp = 2 x sp = 2 through the ring (K3 at 2/1
+     heads a rank) and on fsdp = 2 x tp = 2 through flash_attention (K2)
+     with remat and the chunked loss: loss and every gathered gradient
+     against the same model on the CPU. (a) LLAMA3_1B at full width and
+     depth on fsdp = 2 x tp = 2, dense loss, and (b) on fsdp = 4 with
+     remat and the chunked loss: phase 8's weights (seed 7) cut to each
+     rank's shards, phase 8's tokens and AdamW, 1 + 2 steps; the first
+     loss within 1e-2 and the first global gradient norm within 1% of
+     phase 8's same recipe, the later losses below the first, each rank's
+     launches at phase 8's rate, and per rank its ms per step, peak
+     memory and the bytes each collective moved in a step. (d) the
+     dryrun's launcher, dryrun_multichip(4), on gloo.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -455,14 +472,18 @@ def check_kernel(attention, gen):
     return rows
 
 
+def _tree_map(fn, tree):
+    """A tree of dicts and lists with ``fn`` applied to each leaf."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def _host_copy(params):
     """A copy of a parameter tree on the CPU, sharing no storage."""
-    def copy(t):
-        return t.detach().to("cpu", copy=True)
-
-    return {k: (copy(v) if torch.is_tensor(v) else
-                [{n: copy(t) for n, t in lay.items()} for lay in v])
-            for k, v in params.items()}
+    return _tree_map(lambda t: t.detach().to("cpu", copy=True), params)
 
 
 def check_small_model(models, gen):
@@ -882,6 +903,8 @@ BWD_SHAPES = [  # (B, L, H, Hkv, D, causal): why
     (1, 256, 32, 8, 64, False),    # full mask
     (1, 8192, 8, 2, 64, True),     # a Ulysses rank's call: 64-key dK/dV
     (4, 2048, 32, 8, 128, True),   # D = 128 with 128-key dK/dV blocks
+    (2, 2048, 16, 4, 64, True),    # a rank's call at fsdp = 2 x tp = 2
+    (1, 2048, 32, 8, 64, True),    # a rank's call at fsdp = 4
 ]
 
 
@@ -1089,6 +1112,20 @@ def check_stats(attention, gen):
         q3, k3, v3, vis3), vis3, "fp32 strided")
     log(f"stats_check fp32 B=2 Lq=200 Lk=300 D=64 GQA, strided q, stride-0 "
         f"visible: max_abs_err o, m, l = {list(errs)}")
+    # fp32 at a rank's ring blocks in phase 12 (c): tp = 2 x sp = 2 leaves
+    # each rank 2/1 of the small model's 4/2 heads and 64 of 128 positions.
+    q4 = torch.randn(2, 64, 2, 64, generator=gen, device="cuda")
+    k4, v4 = (torch.randn(2, 64, 1, 64, generator=gen, device="cuda")
+              for _ in range(2))
+    for name, row in (("all", torch.full((64,), 64, device="cuda")),
+                      ("diagonal", torch.arange(1, 65, device="cuda")),
+                      ("none", torch.zeros(64, device="cuda"))):
+        vis4 = row.int()[None, None].expand(2, 2, 64)
+        errs = hold_stats(attention, attention.flash_attention_stats(
+            q4, k4, v4, vis4), attention.flash_attention_stats_plain(
+            q4, k4, v4, vis4), vis4, f"fp32 2/1 heads {name}")
+        log(f"stats_check fp32 B=2 Lq=Lk=64 H=2 Hkv=1 D=64 {name}: "
+            f"max_abs_err o, m, l = {list(errs)}")
     return rows
 
 
@@ -1334,15 +1371,20 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
     The weights and optimizer are freed on return."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = models.init_params(cfg, gen, device="cuda")
-    opt = torch.optim.AdamW(models.trainable(params), lr=LR,
-                            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1)
+    leaves = models.trainable(params)
+    opt = torch.optim.AdamW(leaves, lr=LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.1)
     batch = {"tokens": tokens}
+    norms = []  # the first step's gradient norm
 
     def step():
         opt.zero_grad(set_to_none=True)
         loss = models.loss_fn(params, batch, cfg, remat=remat,
                               chunked_vocab=chunked, attn_impl=attn_impl)
         loss.backward()
+        if not norms:
+            norms.append(torch.stack([t.grad.float().square().sum()
+                                      for t in leaves]).sum().sqrt())
         opt.step()
         return loss.detach()
 
@@ -1377,7 +1419,8 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
         f"MFU {mfu}; peak memory {peak / 2**30} GiB; launches {counts} "
         f"over {warm + timed} steps")
     out = dict(losses=losses, step_ms=step_s * 1e3, tokens_per_s=tok_s,
-               mfu=mfu, peak_gib=peak / 2**30, **counts)
+               mfu=mfu, peak_gib=peak / 2**30, grad_norm=float(norms[0]),
+               **counts)
     if profile:
         busy_ms, kernels = device_profile(step, 1)
         log(f"train profile {name}: the device ran {busy_ms} ms in one "
@@ -1385,10 +1428,295 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
             f"{sum(n for _, n, _ in kernels)} kernels")
         log_top(kernels)
         out["busy_share"] = busy_ms / 1e3 / step_s
-    del params, opt, step
+    del params, leaves, opt, step
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# Phase 12: sharded training, 4 ranks on the one card. LLAMA3_1B's runs:
+# name -> (mesh sizes, remat, chunked vocab, phase 8's run of that recipe).
+SHARDED_RUNS = {
+    "fsdp=2 x tp=2, dense": (dict(fsdp=2, tp=2), False, 0, "dense"),
+    "fsdp=4, remat + chunked": (dict(fsdp=4), True, 16384, "remat"),
+}
+SHARDED_STEPS = (1, 2)  # warm-up, timed
+# The small fp32 model: head dim 64, so tp = 2 leaves each rank 2/1 heads
+# for the kernels. name -> (mesh sizes, attention, remat, chunked vocab).
+SMALL_CFG = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                 n_kv_heads=2, d_ff=512)
+SMALL_TOKENS = (2, 128)
+SHARDED_SMALL_RUNS = {
+    "tp=2 x sp=2, sp ring (flash)": (dict(tp=2, sp=2), "ring", False, 0),
+    "fsdp=2 x tp=2, flash_attention, remat + chunked":
+        (dict(fsdp=2, tp=2), None, True, 128),
+}
+WORLD = 4
+
+
+def _small_inputs(models):
+    """Phase 12 (c)'s fp32 weights and tokens, from CPU generators, so the
+    ranks and the parent's CPU reference draw the same ones."""
+    cfg = models.LlamaConfig(**SMALL_CFG, dtype=torch.float32)
+    params = models.init_params(cfg, torch.Generator().manual_seed(12),
+                                device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, SMALL_TOKENS,
+                           generator=torch.Generator().manual_seed(13))
+    return cfg, params, tokens
+
+
+def _counts(attention):
+    return {c: getattr(attention, c) for c in COUNTERS + ("dense_routes",)}
+
+
+def sharded_small(models, parallel, attention, sizes, attn, remat, chunked,
+                  grads_path):
+    """Phase 12 (c) in one rank: the small model's shards on the mesh, its
+    share's backward, the gradients completed; returns the global loss and
+    this rank's launches, and rank 0 saves the gathered gradients."""
+    from ray_tpu_torch.parallel import collectives, training
+
+    cfg, params, tokens = _small_inputs(models)
+    mesh = parallel.make_mesh(parallel.MeshSpec(**sizes), device="cuda",
+                              backend="gloo")
+    params = _tree_map(lambda t: t.to("cuda"), params)
+    specs = parallel.shardings_for_tree(params, mesh)
+    shards = parallel.shard_params(params, mesh, specs)
+    models.trainable(shards)
+    impl = (parallel.make_ring_attention(mesh, block_impl="flash")
+            if attn == "ring" else None)
+    for c in COUNTERS + ("dense_routes",):
+        setattr(attention, c, 0)
+    share = parallel.sharded_loss_fn(shards, tokens.to("cuda"), cfg, mesh,
+                                     attn_impl=impl, remat=remat,
+                                     chunked_vocab=chunked, specs=specs)
+    share.backward()
+    parallel.allreduce_grads(shards, mesh, specs)
+    torch.cuda.synchronize()
+    counts = _counts(attention)
+    loss = collectives.allreduce(share.detach(), mesh, training.SPLIT_AXES)
+    grads = parallel.gather_params(_tree_map(lambda t: t.grad, shards),
+                                   mesh, specs)
+    if torch.distributed.get_rank() == 0:
+        torch.save(_host_copy(grads), grads_path)
+    return dict(loss=float(loss), local_heads=[
+        shards["layers"][0]["wq"].shape[1] // cfg.head_dim,
+        shards["layers"][0]["wk"].shape[1] // cfg.head_dim], **counts)
+
+
+def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
+                  chunked):
+    """Phase 12 (a) and (b) in one rank: phase 8's weights (seed 7) built
+    on the card, cut to this rank's shards and the rest freed, then
+    SHARDED_STEPS AdamW steps on phase 8's tokens through sharded_loss_fn
+    (flash_attention, K2, at this rank's heads and rows). Every launch
+    count and the mesh's traffic are reset just before the steps and read
+    just after."""
+    from ray_tpu_torch.parallel import collectives, training
+
+    mesh = parallel.make_mesh(parallel.MeshSpec(**sizes), device="cuda",
+                              backend="gloo")
+    params = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    specs = parallel.shardings_for_tree(params, mesh)
+    shards = parallel.shard_params(params, mesh, specs)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaves = models.trainable(shards)
+    opt = torch.optim.AdamW(leaves, lr=LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.1)
+    norms = []  # the first step's global gradient norm
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        share = parallel.sharded_loss_fn(shards, tokens, cfg, mesh,
+                                         remat=remat, chunked_vocab=chunked,
+                                         specs=specs)
+        share.backward()
+        parallel.allreduce_grads(shards, mesh, specs)
+        if not norms:
+            norms.append(parallel.global_grad_norm(shards, mesh, specs))
+        opt.step()
+        return collectives.allreduce(share.detach(), mesh,
+                                     training.SPLIT_AXES)
+
+    warm, timed = SHARDED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts reset just before, read just after
+    for c in COUNTERS + ("dense_routes",):
+        setattr(attention, c, 0)
+    mesh.traffic.clear()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(warm)]
+    torch.cuda.synchronize()
+    after_warm = dict(mesh.traffic)
+    t1 = time.perf_counter()
+    losses += [step() for _ in range(timed)]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _counts(attention)
+    # ---- end of the main path
+    state = sum(t.numel() * t.element_size() for t in leaves) + sum(
+        v.numel() * v.element_size() for st in opt.state.values()
+        for v in st.values())
+    out = dict(losses=[float(x) for x in losses], grad_norm=float(norms[0]),
+               step_ms=(t2 - t1) / timed * 1e3, warm_ms=(t1 - t0) / warm * 1e3,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               state_gib=(state + sum(t.grad.numel() * t.grad.element_size()
+                                      for t in leaves)) / 2**30,
+               shard_params=sum(t.numel() for t in leaves),
+               traffic_per_step={k: (v - after_warm.get(k, 0)) / timed
+                                 for k, v in sorted(mesh.traffic.items())},
+               **counts)
+    del shards, leaves, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rank(rank, tmp, tokens):
+    """Phase 12's body in rank ``rank`` of the 4-process group: (c) the
+    small model's runs, then (a) and (b); results to ``tmp``. A failure
+    raises out of the process, and the parent's spawn raises it."""
+    import datetime
+
+    import torch.distributed as dist
+    from ray_tpu_torch import models, parallel
+    from ray_tpu_torch.ops import attention
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), WORLD),
+        rank=rank, world_size=WORLD, timeout=datetime.timedelta(seconds=600))
+    try:
+        out = {"small": {}, "train": {}}
+        for i, (name, (sizes, attn, remat, chunked)) in enumerate(
+                SHARDED_SMALL_RUNS.items()):
+            out["small"][name] = sharded_small(
+                models, parallel, attention, sizes, attn, remat, chunked,
+                os.path.join(tmp, f"small{i}.pt"))
+        tokens = tokens.to("cuda")
+        for name, (sizes, remat, chunked, _) in SHARDED_RUNS.items():
+            out["train"][name] = sharded_train(
+                models, parallel, attention, models.LLAMA3_1B, tokens,
+                sizes, remat, chunked)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def small_reference(models, attn, remat, chunked):
+    """Phase 12 (c)'s model on the CPU, whole: loss and gradients."""
+    cfg, params, tokens = _small_inputs(models)
+    leaves = models.trainable(params)
+    loss = models.loss_fn(params, {"tokens": tokens}, cfg, remat=remat,
+                          chunked_vocab=chunked)
+    loss.backward()
+    return loss.item(), [t.grad for t in leaves]
+
+
+def sharded_training(models, parallel, attention, tokens, phase8):
+    """Phase 12: 4 processes on this card, each with its own CUDA context,
+    in one gloo group (their mesh built with backend="gloo", so every
+    collective is staged through host memory). (c) the small fp32 model on
+    tp = 2 x sp = 2 (the ring, K3) and fsdp = 2 x tp = 2 (flash_attention,
+    K2, remat + chunked), loss and every gathered gradient held to the
+    same model on the CPU; (a) and (b) LLAMA3_1B as SHARDED_RUNS, held to
+    phase 8's run of the same recipe (``phase8``: name to its result and
+    step count); (d) the dryrun's launcher. Returns (a) and (b)'s
+    per-rank results, and (c)'s."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    log("phase 12: 4 ranks on this one card; the mesh's process groups use "
+        "backend='gloo', so every collective is staged through host memory "
+        "(a record of the sharded path, not a speed figure for it)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(sharded_rank, args=(tmp, tokens.cpu()), nprocs=WORLD,
+                 join=True)
+        ranks = []
+        for r in range(WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        small_grads = [torch.load(os.path.join(tmp, f"small{i}.pt"))
+                       for i in range(len(SHARDED_SMALL_RUNS))]
+    log(f"phase 12 ranks done in {time.perf_counter() - t0} s")
+    small_cfg = models.LlamaConfig(**SMALL_CFG, dtype=torch.float32)
+    for (name, (sizes, attn, remat, chunked)), grads in zip(
+            SHARDED_SMALL_RUNS.items(), small_grads):
+        want, want_grads = small_reference(models, attn, remat, chunked)
+        got = [r["small"][name] for r in ranks]
+        if not all(abs(g["loss"] - want) <= 1e-5 * abs(want) for g in got):
+            raise AssertionError(f"(c) {name}: losses {[g['loss'] for g in got]}"
+                                 f", CPU {want}")
+        flat = [t for _, t in parallel.sharding.tree_paths(grads)]
+        worst = max(hold_grad(g, w, FP32_GRAD_RULE, f"(c) {name} grad {i}")[1]
+                    for i, (g, w) in enumerate(zip(flat, want_grads)))
+        n = small_cfg.n_layers
+        expect = ({"stats_launches": n * sizes["sp"]} if attn == "ring" else
+                  {"launches": 2 * n, "bwd_launches": n})
+        for r, g in enumerate(got):
+            counts = {c: g[c] for c in COUNTERS + ("dense_routes",)}
+            if counts != {c: expect.get(c, 0) for c in counts}:
+                raise AssertionError(f"(c) {name} rank {r}: launches "
+                                     f"{counts}, expected {expect}")
+        log(f"phase 12 (c) {name}: loss {got[0]['loss']} (CPU {want}), "
+            f"{len(flat)} gathered gradients, worst element {worst} of rule "
+            f"{FP32_GRAD_RULE}; local heads {got[0]['local_heads']}; "
+            f"launches per rank {expect}")
+    results = {}
+    for name, (sizes, remat, chunked, recipe) in SHARDED_RUNS.items():
+        ref, ref_steps = phase8[recipe]
+        got = [r["train"][name] for r in ranks]
+        first, norm = got[0]["losses"][0], got[0]["grad_norm"]
+        if not all(g["losses"] == got[0]["losses"] for g in got):
+            raise AssertionError(f"{name}: ranks' losses differ: "
+                                 f"{[g['losses'] for g in got]}")
+        if not abs(first - ref["losses"][0]) <= 1e-2 * abs(ref["losses"][0]):
+            raise AssertionError(f"{name}: first loss {first}, phase 8's "
+                                 f"{ref['losses'][0]}")
+        if not abs(norm - ref["grad_norm"]) <= 1e-2 * ref["grad_norm"]:
+            raise AssertionError(f"{name}: first gradient norm {norm}, "
+                                 f"phase 8's {ref['grad_norm']}")
+        losses = got[0]["losses"]
+        if not (all(math.isfinite(x) for x in losses)
+                and all(x < losses[0] for x in losses[1:])):
+            raise AssertionError(f"{name}: losses {losses} not finite and "
+                                 f"below the first")
+        steps = sum(SHARDED_STEPS)
+        expect = {c: ref.get(c, 0) * steps // ref_steps for c in COUNTERS}
+        expect["dense_routes"] = 0
+        for r, g in enumerate(got):
+            counts = {c: g[c] for c in expect}
+            if counts != expect:
+                raise AssertionError(f"{name} rank {r}: launches {counts}, "
+                                     f"expected {expect} (phase 8's rate)")
+        log(f"phase 12 {name}: losses {losses} (phase 8's first "
+            f"{ref['losses'][0]}, gap {first - ref['losses'][0]}); first "
+            f"gradient norm {norm} (phase 8's {ref['grad_norm']}, ratio "
+            f"{norm / ref['grad_norm']}); launches per rank {expect} over "
+            f"{steps} steps")
+        for r, g in enumerate(got):
+            log(f"phase 12 {name} rank {r}: {g['step_ms']} ms/step over "
+                f"{SHARDED_STEPS[1]} timed steps (warm-up {g['warm_ms']} "
+                f"ms), peak memory {g['peak_gib']} GiB, state {g['state_gib']}"
+                f" GiB ({g['shard_params']} parameters), per step "
+                f"{json.dumps(g['traffic_per_step'])}")
+        results[name] = got
+    t0 = time.perf_counter()
+    loss = parallel.dryrun_multichip(WORLD, device="cuda", backend="gloo")
+    log(f"phase 12 (d) dryrun_multichip({WORLD}) on this card (gloo): loss "
+        f"{loss} in {time.perf_counter() - t0} s")
+    return results, {name: [r["small"][name] for r in ranks]
+                     for name in SHARDED_SMALL_RUNS}
 
 
 async def serve_requests(server, requests):
@@ -1531,7 +1859,7 @@ def main() -> int:
     # Phase 11: sequence-parallel training, LLAMA3_1B on phase 8's 8192
     # tokens as one [1, 8192] sequence, sp = 4 ranks in lockstep on this
     # card; the ring's stats kernel runs n_layers x sp^2 times a forward.
-    tokens = tokens.reshape(1, -1)
+    train_tokens, tokens = tokens, tokens.reshape(1, -1)
     mesh = parallel.make_mesh(parallel.MeshSpec(sp=4), device="cuda")
     n = mesh.shape["sp"]
     ring = train_run(models, attention, cfg, tokens, seed=7, warm=1,
@@ -1562,11 +1890,24 @@ def main() -> int:
     log(f"first loss [1, 8192]: {first}")
     ring_layer_times(attention, parallel, gen)
 
+    sharded, small = sharded_training(models, parallel, attention,
+                                      train_tokens, {"dense": (dense, 6),
+                                                     "remat": (remat, 3)})
+
+    def sharded_launches(counter):
+        """Phase 12's launches of a counter: per rank by run, and in all."""
+        by_run = {f"phase 12 {name}, per rank": [g[counter] for g in got]
+                  for name, got in list(sharded.items()) + list(small.items())
+                  if any(g[counter] for g in got)}
+        return by_run, sum(g[counter] for got in sharded.values()
+                           for g in got)
+
     main = next(r for r in rows if r["L"] == 1024)
     train = bwd_rows[0]
     train_shape = "B=4 L=2048 H=32 Hkv=8 D=64 causal bf16"
     bwd_launches = (dense["bwd_launches"] + remat["bwd_launches"]
-                    + k2["bwd_launches"] + uly["bwd_launches"])
+                    + k2["bwd_launches"] + uly["bwd_launches"]
+                    + sharded_launches("bwd_launches")[1])
     mosaic = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
@@ -1575,12 +1916,13 @@ def main() -> int:
         "also_replaces": "ray_tpu/ops/attention.py:231 (forward)",
         "launches": serve_launches + sum(slice_launches.values())
         + dense["launches"] + remat["launches"] + k2["launches"]
-        + uly["launches"],
+        + uly["launches"] + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
                              "train_remat_chunked": remat["launches"],
                              "train_8k_flash_attention": k2["launches"],
-                             "train_8k_ulysses": uly["launches"]},
+                             "train_8k_ulysses": uly["launches"],
+                             **sharded_launches("launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1614,7 +1956,8 @@ def main() -> int:
                                      remat["bwd_launches"],
                                  "train_8k_flash_attention":
                                      k2["bwd_launches"],
-                                 "train_8k_ulysses": uly["bwd_launches"]},
+                                 "train_8k_ulysses": uly["bwd_launches"],
+                                 **sharded_launches("bwd_launches")[0]},
             "max_abs_err": max(r[g]["max_abs_err"] for r in bwd_rows
                                for g in (("dk", "dv") if name == "dkdv"
                                          else ("dq",))),
@@ -1648,7 +1991,8 @@ def main() -> int:
         "replaces_detail": "_flash_stats_bhld -> _flash_stats_kernel "
                            "(kernel :261, pallas_call :328)",
         "launches": ring["stats_launches"],
-        "launches_by_path": {"train_8k_sp_ring": ring["stats_launches"]},
+        "launches_by_path": {"train_8k_sp_ring": ring["stats_launches"],
+                             **sharded_launches("stats_launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in stats_rows),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],

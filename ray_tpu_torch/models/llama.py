@@ -133,17 +133,21 @@ def _cache_attention(q, k_all, v_all, pos, cfg: LlamaConfig):
 
 
 def _attention_block(layer, x, cos, sin, cfg: LlamaConfig, kv_cache=None,
-                     positions=None, attn_impl=None):
+                     positions=None, attn_impl=None, shard=None):
     """Attention sublayer. ``kv_cache=(k_all, v_all, start)`` writes the new
     K/V in place at ``start`` (an int, or a [B] tensor of per-row offsets)
     and returns ``(out, (k_all, v_all, start + L))``. Without a cache the
     attention is ``attn_impl(q, k, v, causal=True)``, ``flash_attention``
-    unless given."""
+    unless given. Heads are counted from the weights, so a rank whose
+    ``shard`` (a ``parallel.sharding.Placement``) splits them over ``tp``
+    runs its own heads and sums its part of the output over ``tp``."""
     B, L, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = mm(h, layer["wq"]).reshape(B, L, cfg.n_heads, cfg.head_dim)
-    k = mm(h, layer["wk"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
-    v = mm(h, layer["wv"]).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    if shard is not None:
+        h = shard.enter(h)
+    q = mm(h, layer["wq"]).reshape(B, L, -1, cfg.head_dim)
+    k = mm(h, layer["wk"]).reshape(B, L, -1, cfg.head_dim)
+    v = mm(h, layer["wv"]).reshape(B, L, -1, cfg.head_dim)
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
     new_cache = None
@@ -171,30 +175,48 @@ def _attention_block(layer, x, cos, sin, cfg: LlamaConfig, kv_cache=None,
             o = _cache_attention(q, k_all, v_all, pos, cfg)
     else:
         o = (attn_impl or flash_attention)(q, k, v, causal=True)
-    o = o.reshape(B, L, cfg.n_heads * cfg.head_dim)
-    return mm(o, layer["wo"]), new_cache
+    out = mm(o.reshape(B, L, -1), layer["wo"])
+    if shard is not None:
+        out = shard.leave(out)
+    return out, new_cache
 
 
-def _mlp_block(layer, x, cfg: LlamaConfig):
+def _mlp_block(layer, x, cfg: LlamaConfig, shard=None):
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    if shard is not None:
+        h = shard.enter(h)
     g = mm(h, layer["w_gate"])
     u = mm(h, layer["w_up"])
-    return mm(F.silu(g) * u, layer["w_down"])
+    out = mm(F.silu(g) * u, layer["w_down"])
+    return out if shard is None else shard.leave(out)
 
 
-def _head(params, cfg: LlamaConfig):
-    return params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
+def _head(params, cfg: LlamaConfig, shard=None):
+    """The [D, V] head (this rank's vocab columns where ``shard`` splits
+    them)."""
+    if shard is None:
+        return params["embedding"].T if cfg.tie_embeddings \
+            else params["lm_head"]
+    if cfg.tie_embeddings:
+        return shard.param("embedding", params["embedding"]).T
+    return shard.param("lm_head", params["lm_head"])
 
 
-def _layer(x, layer, cos, sin, cfg: LlamaConfig, attn_impl):
-    a, _ = _attention_block(layer, x, cos, sin, cfg, attn_impl=attn_impl)
+def _layer(x, layer, cos, sin, cfg: LlamaConfig, attn_impl, shard=None,
+           i=0):
+    """One block. Under ``shard`` layer ``i``'s weights are gathered here,
+    inside what remat recomputes, so they live one layer at a time."""
+    if shard is not None:
+        layer = shard.layer(i, layer)
+    a, _ = _attention_block(layer, x, cos, sin, cfg, attn_impl=attn_impl,
+                            shard=shard)
     x = x + a
-    return x + _mlp_block(layer, x, cfg)
+    return x + _mlp_block(layer, x, cfg, shard)
 
 
 def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                    cfg: LlamaConfig, remat: bool = True, attn_impl=None,
-                   seq_offset: int = 0) -> torch.Tensor:
+                   seq_offset: int = 0, shard=None) -> torch.Tensor:
     """Final-norm hidden states [B, L, D] (no lm_head projection).
 
     ``remat`` recomputes each layer's activations in the backward pass
@@ -204,29 +226,39 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     ``parallel``). ``seq_offset`` is the global position of ``tokens``'
     first column: a rank that holds one sequence shard passes where its
     shard starts, so RoPE sees global positions, as JAX's one global
-    program does."""
+    program does. ``shard`` (a ``parallel.sharding.Placement``) says how
+    ``params``, this rank's shards, are gathered and split (FSDP, TP)."""
     L = tokens.shape[1]
     cos, sin = rope_frequencies(cfg.head_dim, seq_offset + L,
                                 cfg.rope_theta, device=tokens.device)
     cos, sin = cos[seq_offset:], sin[seq_offset:]
-    x = params["embedding"][tokens.long()].to(cfg.dtype)
-    for layer in params["layers"]:
+    if shard is None:
+        x = params["embedding"][tokens.long()].to(cfg.dtype)
+    else:
+        x = shard.embed(shard.param("embedding", params["embedding"]),
+                        tokens).to(cfg.dtype)
+    for i, layer in enumerate(params["layers"]):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_layer, x, layer, cos, sin, cfg, attn_impl,
-                           use_reentrant=False)
+            x = checkpoint(_layer, x, layer, cos, sin, cfg, attn_impl, shard,
+                           i, use_reentrant=False)
         else:
-            x = _layer(x, layer, cos, sin, cfg, attn_impl)
-    return rms_norm(x, params["norm"], cfg.norm_eps)
+            x = _layer(x, layer, cos, sin, cfg, attn_impl, shard, i)
+    norm = params["norm"] if shard is None else \
+        shard.param("norm", params["norm"])
+    return rms_norm(x, norm, cfg.norm_eps)
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
             remat: bool = True, attn_impl=None,
-            seq_offset: int = 0) -> torch.Tensor:
-    """Logits for a token batch. tokens: [B, L] int -> [B, L, V]; the other
-    arguments as ``forward_hidden``'s."""
+            seq_offset: int = 0, shard=None) -> torch.Tensor:
+    """Logits for a token batch. tokens: [B, L] int -> [B, L, V] (this
+    rank's vocab columns where ``shard`` splits them); the other arguments
+    as ``forward_hidden``'s."""
     x = forward_hidden(params, tokens, cfg, remat=remat, attn_impl=attn_impl,
-                       seq_offset=seq_offset)
-    return mm(x, _head(params, cfg))
+                       seq_offset=seq_offset, shard=shard)
+    if shard is not None:
+        x = shard.enter(x)
+    return mm(x, _head(params, cfg, shard))
 
 
 def next_token_targets(tokens: torch.Tensor) -> torch.Tensor:
@@ -261,16 +293,21 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
 
 def chunked_head_loss(params: Dict[str, Any], x: torch.Tensor,
                       targets: torch.Tensor, cfg: LlamaConfig,
-                      chunked_vocab: int) -> torch.Tensor:
+                      chunked_vocab: int, shard=None) -> torch.Tensor:
     """Mean loss of the final-norm hidden states ``x`` [B, L, D] through
-    the head, the vocab streamed in chunks of ``chunked_vocab``."""
-    head = _head(params, cfg)
+    the head, the vocab streamed in chunks of ``chunked_vocab`` (this
+    rank's vocab slice where ``shard`` splits it)."""
+    head = _head(params, cfg, shard)
     if isinstance(head, Q8):
         # the chunked loss streams its own products from dense weights
         head = head.w.to(x.dtype) * head.s
+    vocab = None
+    if shard is not None:
+        x, vocab = shard.enter(x), shard.vocab
     B, L, D = x.shape
     return chunked_cross_entropy(x.reshape(B * L, D), head,
-                                 targets.reshape(B * L), chunked_vocab)
+                                 targets.reshape(B * L), chunked_vocab,
+                                 vocab=vocab)
 
 
 def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:

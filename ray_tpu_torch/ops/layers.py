@@ -56,14 +56,29 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_index: int = -100, z_loss: float = 0.0
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       ignore_index: int = -100, z_loss: float = 0.0,
+                       vocab=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-level CE with optional z-loss; returns ``(loss, n_valid)``.
-    logits: [..., V]; labels: [...] int. Log-softmax in fp32."""
+    logits: [..., V]; labels: [...] int. Log-softmax in fp32.
+
+    ``vocab`` (a ``parallel.sharding.VocabShard``) says the logits are this
+    rank's columns ``[start, start + V)`` of a vocab split over ranks: the
+    rows' max, sum of exponentials and target logit are then reduced over
+    the vocab's shards, and every shard gets the same loss."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    clipped = labels.clamp(0, logits.shape[-1] - 1).long()
-    true_logit = torch.gather(logits, -1, clipped[..., None])[..., 0]
+    if vocab is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        clipped = labels.clamp(0, logits.shape[-1] - 1).long()
+        true_logit = torch.gather(logits, -1, clipped[..., None])[..., 0]
+    else:
+        V = logits.shape[-1]
+        m = vocab.reduce(logits.detach().amax(dim=-1), "max")
+        lse = m + torch.log(vocab.sum(torch.exp(logits - m[..., None])
+                                      .sum(dim=-1)))
+        local = labels.clamp(0, vocab.total - 1).long() - vocab.start
+        here = (local >= 0) & (local < V)
+        got = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None])
+        true_logit = vocab.sum(torch.where(here, got[..., 0], 0.0))
     nll = lse - true_logit
     if z_loss > 0.0:
         nll = nll + z_loss * lse.square()

@@ -9,6 +9,17 @@ A function returns a new tensor and leaves its input as it was, as the
 JAX ones do. Over an axis of size 1 each is the identity (or index 0). A
 one-device mesh has no groups, and a call on it raises.
 
+Every call is counted in ``mesh.traffic`` (its calls and the bytes of
+this rank's input). On a mesh built with gloo over CUDA tensors
+(``mesh.host_staged``) each call copies its tensors to host buffers, runs
+the gloo collective there and copies the result back to the card, and
+counts ``"host_staged"``: the caller chose that route to put several ranks
+on one card; the tensors, the kernels and the autograd graph stay on the
+card.
+
+``gather_param``, ``allreduce_fwd`` and ``allreduce_bwd`` carry a gradient
+of their own, for FSDP and tensor parallelism (``parallel/sharding.py``).
+
 The host tier (``HostCollectiveGroup``, reductions between actors through
 the object store) belongs to the runtime tier and is not ported here.
 """
@@ -33,6 +44,23 @@ def _peer(group, i: int) -> int:
     return dist.get_global_rank(group, i)
 
 
+def _wire(mesh: Mesh, name: str, x: torch.Tensor) -> torch.Tensor:
+    """Count a call of collective ``name`` on ``x`` and return the buffer
+    it runs on: ``x`` contiguous, or a copy in host memory on a
+    host-staged mesh."""
+    mesh.traffic[name] += 1
+    mesh.traffic[name + "_bytes"] += x.numel() * x.element_size()
+    if mesh.host_staged:
+        mesh.traffic["host_staged"] += 1
+        return x.to("cpu", memory_format=torch.contiguous_format)
+    return x.contiguous()
+
+
+def _back(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A collective's result ``buf`` on ``like``'s device."""
+    return buf.to(like.device)
+
+
 def allreduce(x: torch.Tensor, mesh: Mesh, axis: AxisName = "dp",
               op: str = "sum") -> torch.Tensor:
     """All-reduce over an axis, or over several in turn (``sum``, ``mean``,
@@ -44,8 +72,10 @@ def allreduce(x: torch.Tensor, mesh: Mesh, axis: AxisName = "dp",
         group = mesh.group(a)
         if group is None:
             continue
-        dist.all_reduce(out, op=_OPS["sum" if op == "mean" else op],
+        buf = _wire(mesh, "allreduce", out)
+        dist.all_reduce(buf, op=_OPS["sum" if op == "mean" else op],
                         group=group)
+        out = _back(buf, x)
         if op == "mean":
             out /= mesh.shape[a]
     return out
@@ -59,9 +89,10 @@ def allgather(x: torch.Tensor, mesh: Mesh, axis: str = "dp", *,
     if group is None:
         parts = [x]
     else:
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
-        dist.all_gather(parts, x, group=group)
+        buf = _wire(mesh, "allgather", x)
+        parts = [torch.empty_like(buf) for _ in range(mesh.shape[axis])]
+        dist.all_gather(parts, buf, group=group)
+        parts = [_back(p, x) for p in parts]
     return (torch.cat if tiled else torch.stack)(parts, dim=gather_axis)
 
 
@@ -72,21 +103,23 @@ def reducescatter(x: torch.Tensor, mesh: Mesh, axis: str = "dp", *,
     group = mesh.group(axis)
     if group is None:
         return x.clone()
+    buf = _wire(mesh, "reducescatter", x)
     parts = [c.contiguous() for c in
-             x.chunk(mesh.shape[axis], dim=scatter_axis)]
+             buf.chunk(mesh.shape[axis], dim=scatter_axis)]
     out = torch.empty_like(parts[0])
     dist.reduce_scatter(out, parts, group=group)
-    return out
+    return _back(out, x)
 
 
 def broadcast(x: torch.Tensor, mesh: Mesh, axis: str = "dp",
               root: int = 0) -> torch.Tensor:
     """Every rank gets the value of index ``root`` along the axis."""
     group = mesh.group(axis)
-    out = x.clone().contiguous()
-    if group is not None:
-        dist.broadcast(out, src=_peer(group, root), group=group)
-    return out
+    if group is None:
+        return x.clone()
+    buf = _wire(mesh, "broadcast", x.clone())
+    dist.broadcast(buf, src=_peer(group, root), group=group)
+    return _back(buf, x)
 
 
 def alltoall(x: torch.Tensor, mesh: Mesh, axis: str = "sp", *,
@@ -98,10 +131,10 @@ def alltoall(x: torch.Tensor, mesh: Mesh, axis: str = "sp", *,
     if group is None:
         return x.clone()
     n = mesh.shape[axis]
-    send = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
+    send = _wire(mesh, "alltoall", torch.stack(x.chunk(n, dim=split_axis)))
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
-    return torch.cat(recv.unbind(0), dim=concat_axis)
+    return torch.cat(_back(recv, x).unbind(0), dim=concat_axis)
 
 
 def send_recv(x: torch.Tensor, mesh: Mesh, axis: str,
@@ -112,15 +145,19 @@ def send_recv(x: torch.Tensor, mesh: Mesh, axis: str,
     group = mesh.group(axis)
     me = axis_index(mesh, axis)
     x = x.contiguous()
+    sends = [d for s, d in pairs if s == me != d]
+    recvs = [s for s, d in pairs if d == me != s]
+    buf = _wire(mesh, "send_recv", x) if sends else x
     out = x.clone() if (me, me) in pairs else torch.zeros_like(x)
-    ops = [dist.P2POp(dist.isend, x, _peer(group, d), group)
-           for s, d in pairs if s == me != d]
-    ops += [dist.P2POp(dist.irecv, out, _peer(group, s), group)
-            for s, d in pairs if d == me != s]
+    into = out.cpu() if mesh.host_staged else out
+    ops = [dist.P2POp(dist.isend, buf, _peer(group, d), group)
+           for d in sends]
+    ops += [dist.P2POp(dist.irecv, into, _peer(group, s), group)
+            for s in recvs]
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return out
+    return _back(into, x)
 
 
 def permute(x: torch.Tensor, mesh: Mesh, axis: str,
@@ -139,3 +176,73 @@ def axis_index(mesh: Mesh, axis: str) -> int:
 
 def axis_size(mesh: Mesh, axis: str) -> int:
     return mesh.shape[axis]
+
+
+class _GatherParam(torch.autograd.Function):
+    """FSDP's gather: ``allgather`` along ``dim`` in the forward, and in
+    the backward the gradient reduce-scattered along ``dim``, so each rank
+    keeps the sum over the axis of its own block's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return allgather(x, mesh, axis, gather_axis=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return reducescatter(g, mesh, axis, scatter_axis=dim), None, None, \
+            None
+
+
+class _AllReduceFwd(torch.autograd.Function):
+    """Megatron's g: the sum over the axis in the forward, the identity in
+    the backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return allreduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllReduceBwd(torch.autograd.Function):
+    """Megatron's f: the identity in the forward, the sum over the axis in
+    the backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return allreduce(g, *ctx.args), None, None
+
+
+def gather_param(x: torch.Tensor, mesh: Mesh, axis: str,
+                 dim: int) -> torch.Tensor:
+    """The axis's blocks of ``x`` joined along ``dim`` in axis order; the
+    gradient is reduce-scattered back to this rank's block."""
+    if mesh.group(axis) is None:
+        return x
+    return _GatherParam.apply(x, mesh, axis, dim)
+
+
+def allreduce_fwd(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over the axis, with the identity as its gradient:
+    the output of a row-parallel product, whose every rank then computes
+    the same function of it."""
+    if mesh.group(axis) is None:
+        return x
+    return _AllReduceFwd.apply(x, mesh, axis)
+
+
+def allreduce_bwd(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``x`` itself, with its gradient summed over the axis: the input of a
+    column-parallel product, which each rank uses for its own columns."""
+    if mesh.group(axis) is None:
+        return x
+    return _AllReduceBwd.apply(x, mesh, axis)

@@ -13,7 +13,9 @@ Two kinds of mesh:
     mesh in JAX's axis order (rank r sits where ``jax.devices()[r]`` sits
     in ``make_mesh``'s reshape), and every axis of size > 1 gets a group
     over the ranks that differ only along it. The groups' backend follows
-    the device: NCCL for CUDA, gloo only when the caller asks for the CPU.
+    the device (NCCL for CUDA, gloo for the CPU) unless the caller names
+    one: gloo on CUDA puts several ranks on one card, and the collectives
+    then stage each tensor through host memory (``host_staged``).
   * with no process group, all of the mesh's ranks live on one device and
     run in lockstep, inside the attention that needs them (the ring's and
     Ulysses' ``sp`` ranks): the counterpart of the JAX package running an
@@ -23,6 +25,7 @@ Two kinds of mesh:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple
@@ -93,14 +96,22 @@ def mesh_spec_from_string(s: str, n_devices: Optional[int] = None) -> MeshSpec:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """A resolved layout on ``device``. On a process-group mesh ``coords``
-    holds this rank's index along each axis and ``groups`` a process group
-    for each axis of size > 1; on a one-device mesh both are empty."""
+    holds this rank's index along each axis, ``groups`` a process group
+    for each axis of size > 1 and ``backend`` their backend; on a
+    one-device mesh all are empty. ``traffic`` counts what this rank's
+    collectives over the mesh carried (``parallel.collectives``): per
+    collective its calls and the bytes of this rank's input
+    (``"<name>_bytes"``), and ``"host_staged"`` the calls that went
+    through host memory."""
 
     spec: MeshSpec
     device: torch.device
     coords: Dict[str, int] = dataclasses.field(default_factory=dict)
     groups: Dict[str, "dist.ProcessGroup"] = dataclasses.field(
         default_factory=dict)
+    backend: str = ""
+    traffic: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -110,6 +121,13 @@ class Mesh:
     def distributed(self) -> bool:
         return bool(self.coords)
 
+    @property
+    def host_staged(self) -> bool:
+        """Whether collectives copy through host memory: gloo groups over
+        CUDA tensors, which gloo does not take for every collective (its
+        send and receive abort the process on a device pointer)."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
     def group(self, axis: str):
         """The process group of ``axis``; None where the axis has size 1.
         A one-device mesh has none and raises."""
@@ -118,15 +136,18 @@ class Mesh:
         return self.groups.get(axis)
 
 
-def make_mesh(spec: Optional[MeshSpec] = None, device=None) -> Mesh:
+def make_mesh(spec: Optional[MeshSpec] = None, device=None,
+              backend: Optional[str] = None) -> Mesh:
     """Build the mesh for ``spec`` on ``device`` (CUDA unless the caller
     names another).
 
     With ``torch.distributed`` initialised the spec is resolved against
     the world size, and every rank must call this with the same spec: each
-    group is created by all ranks, in the same order. Without it the spec
-    must name every size (no ``-1``), and the mesh's ranks share
-    ``device``."""
+    group is created by all ranks, in the same order. The groups' backend
+    is ``backend``, or NCCL for CUDA and gloo for the CPU; ``"gloo"`` on
+    CUDA lets several ranks share one card, their collectives staged
+    through host memory. Without ``torch.distributed`` the spec must name
+    every size (no ``-1``), and the mesh's ranks share ``device``."""
     device = resolve_device(device)
     spec = spec or MeshSpec()
     if not (dist.is_available() and dist.is_initialized()):
@@ -136,7 +157,7 @@ def make_mesh(spec: Optional[MeshSpec] = None, device=None) -> Mesh:
         return Mesh(spec.resolve(spec.n_devices), device)
     world, rank = dist.get_world_size(), dist.get_rank()
     spec = spec.resolve(world)
-    backend = "nccl" if device.type == "cuda" else "gloo"
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     grid = np.arange(world).reshape([spec.sizes()[a] for a in AXES])
     coords = dict(zip(AXES, (int(i) for i in
                              np.unravel_index(rank, grid.shape))))
@@ -149,7 +170,7 @@ def make_mesh(spec: Optional[MeshSpec] = None, device=None) -> Mesh:
             group = dist.new_group(ranks, backend=backend)
             if rank in ranks:
                 groups[axis] = group
-    return Mesh(spec, device, coords, groups)
+    return Mesh(spec, device, coords, groups, backend)
 
 
 def data_axes(mesh: Mesh) -> Tuple[str, ...]:

@@ -31,6 +31,7 @@ heads first.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import torch
@@ -268,18 +269,46 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def check_axes(mesh: Mesh, q: torch.Tensor, k: torch.Tensor,
+               batch_axes, head_axis: Optional[str]) -> None:
+    """What JAX's ``shard_map`` spec ``P(batch_axes, axis, head_axis)``
+    asks of the inputs. The axes must be the mesh's. On a one-device mesh,
+    which takes global tensors, the batch must split over ``batch_axes``
+    and the query and kv heads over ``head_axis``; on a process-group mesh
+    the tensors are this rank's already (its rows, positions and heads),
+    and its heads must group (GQA)."""
+    axes = tuple(batch_axes) + ((head_axis,) if head_axis else ())
+    unknown = [a for a in axes if a not in mesh.shape]
+    if unknown:
+        raise ValueError(f"unknown mesh axes {unknown}")
+    B, H, Hkv = q.shape[0], q.shape[2], k.shape[2]
+    if mesh.distributed:
+        if Hkv < 1 or H % Hkv:
+            raise ValueError(f"{H} local query heads do not group over "
+                             f"{Hkv} kv heads")
+        return
+    rows = math.prod(mesh.shape[a] for a in batch_axes)
+    heads = mesh.shape[head_axis] if head_axis else 1
+    if B % rows or H % heads or Hkv % heads:
+        raise ValueError(f"batch {B} over {batch_axes} ({rows}) or heads "
+                         f"{H}/{Hkv} over {head_axis} ({heads}) do not split")
+
+
 def make_ring_attention(mesh: Mesh, *, causal: bool = True,
-                        axis: str = "sp", block_impl: str = "auto"):
+                        axis: str = "sp", batch_axes=("dp", "fsdp"),
+                        head_axis: str = "tp", block_impl: str = "auto"):
     """Ring attention over ``mesh``'s ``axis`` as an ``attn_impl`` for
     ``models.llama``: ``attend(q, k, v, causal=causal, scale=None)``.
 
     On a one-device mesh ``attend`` takes the global [B, L, H, D] tensors,
     as JAX's ``shard_map`` wrapper does, and runs the ranks in lockstep; on
-    a process-group mesh it takes this rank's shards and rotates over the
-    axis's group."""
+    a process-group mesh it takes this rank's shards (its rows of the
+    batch over ``batch_axes``, its heads over ``head_axis``) and rotates
+    over the axis's group. ``check_axes`` holds the inputs to the axes."""
 
     def attend(q, k, v, causal: bool = causal,
                scale: Optional[float] = None):
+        check_axes(mesh, q, k, batch_axes, head_axis)
         return ring_attention(q, k, v, mesh, axis=axis, causal=causal,
                               scale=scale, block_impl=block_impl)
 

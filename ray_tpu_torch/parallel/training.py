@@ -1,16 +1,19 @@
-"""The loss and gradients of a step whose batch is split over a
-process-group mesh.
+"""The loss and gradients of a step over a process-group mesh: the batch
+split over ``dp``, ``fsdp``, ``ep`` and ``sp``, the parameters sharded over
+``fsdp`` and ``tp`` as their specs say (``parallel/sharding.py``).
 
 JAX's ``loss_fn`` over sharded arrays is one global program: its mean is
-the global mean and ``jax.grad`` sums each replicated parameter's
-gradient over the ranks. Here each rank runs its own program on its
-shard, so both are made explicit. Parameters are replicated on every
-rank (FSDP/TP sharding is not ported yet).
+the global mean and ``jax.grad`` gives each parameter's whole gradient.
+Here each rank runs its own program on its shard, so both are made
+explicit: each rank's loss is its share of the global mean, the FSDP
+gathers reduce-scatter their gradients over ``fsdp`` in the backward, and
+``allreduce_grads`` sums the rest over the batch axes.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable
+import math
+from typing import Any, Dict
 
 import torch
 
@@ -19,7 +22,8 @@ from ..models.llama import (LlamaConfig, chunked_head_loss, forward,
 from ..ops.chunked_xent import IGNORE
 from ..ops.layers import cross_entropy_loss
 from .collectives import allreduce
-from .mesh import BATCH_AXES, Mesh, shard_batch
+from .mesh import AXES, BATCH_AXES, Mesh, shard_batch
+from .sharding import Placement, spec_axes, tree_paths
 
 #: The axes a batch is split over: its rows and its positions.
 SPLIT_AXES = BATCH_AXES + ("sp",)
@@ -27,45 +31,87 @@ SPLIT_AXES = BATCH_AXES + ("sp",)
 
 def sharded_loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
                     cfg: LlamaConfig, mesh: Mesh, attn_impl=None,
-                    remat: bool = False,
-                    chunked_vocab: int = 0) -> torch.Tensor:
+                    remat: bool = False, chunked_vocab: int = 0,
+                    specs: Any = None) -> torch.Tensor:
     """This rank's share of the mean next-token loss of the global batch
-    ``tokens`` [B, L]: the shares of all ranks sum to that mean.
+    ``tokens`` [B, L]: the shares of the ranks that split the batch sum to
+    that mean, and ranks that differ only along ``tp`` hold the same share.
 
-    Targets are built on the global batch before it is sliced (a shard's
-    last target is the next shard's first token), RoPE sees global
-    positions, and the rank's mean is rescaled by its count of targets
-    over the count of all ranks' targets: the last shard of each row holds
-    one ignored target, so averaging local means would weigh it wrongly.
-    ``attn_impl`` must attend across the ``sp`` shards (a ring or Ulysses
-    attention over ``mesh``). ``remat`` and ``chunked_vocab`` are
-    ``models.llama.loss_fn``'s: each layer recomputed in the backward, and
-    the vocab streamed in chunks of that size on this rank's rows. On a
-    one-device mesh the ranks run in lockstep inside ``attn_impl`` and the
-    share is the whole loss. The backward of the share gives this rank's
-    part of each gradient; ``allreduce_grads`` sums them."""
-    if mesh.shape["tp"] > 1 or mesh.shape["pp"] > 1:
-        raise NotImplementedError("tp and pp meshes are not ported yet")
+    ``params`` are this rank's shards of the tree (``shard_params``) under
+    ``specs`` (``shardings_for_tree`` of the global tree), or, with no
+    ``specs``, the whole tree on every rank. Targets are built on the
+    global batch before it is sliced (a shard's last target is the next
+    shard's first token), RoPE sees global positions, and the rank's mean
+    is rescaled by its count of targets over the count of all ranks'
+    targets: the last shard of each row holds one ignored target, so
+    averaging local means would weigh it wrongly. ``attn_impl`` must attend
+    across the ``sp`` shards (a ring or Ulysses attention over ``mesh``)
+    where ``sp`` > 1. ``remat`` and ``chunked_vocab`` are
+    ``models.llama.loss_fn``'s: each layer recomputed in the backward (its
+    FSDP gathers too), and the vocab streamed in chunks of that size on
+    this rank's rows and vocab slice. On a one-device mesh the ranks run
+    in lockstep inside ``attn_impl`` on the whole tree and the share is
+    the whole loss. The backward of the share gives this rank's part of
+    each gradient; ``allreduce_grads`` completes them."""
+    if mesh.shape["pp"] > 1:
+        raise NotImplementedError("pp meshes are not ported yet")
     tok = shard_batch(mesh, tokens)
     tgt = shard_batch(mesh, next_token_targets(tokens))
     seq_offset = mesh.coords["sp"] * tok.shape[1] if mesh.distributed else 0
+    shard = Placement(mesh, cfg, specs) if mesh.distributed else None
     if chunked_vocab > 0:
         x = forward_hidden(params, tok, cfg, remat=remat,
-                           attn_impl=attn_impl, seq_offset=seq_offset)
-        loss = chunked_head_loss(params, x, tgt, cfg, chunked_vocab)
+                           attn_impl=attn_impl, seq_offset=seq_offset,
+                           shard=shard)
+        loss = chunked_head_loss(params, x, tgt, cfg, chunked_vocab,
+                                 shard=shard)
         n = (tgt != IGNORE).sum().float()
     else:
         logits = forward(params, tok, cfg, remat=remat, attn_impl=attn_impl,
-                         seq_offset=seq_offset)
-        loss, n = cross_entropy_loss(logits, tgt)
+                         seq_offset=seq_offset, shard=shard)
+        loss, n = cross_entropy_loss(logits, tgt,
+                                     vocab=shard.vocab if shard else None)
     if not mesh.distributed:
         return loss  # every rank lives here: the share is the whole mean
     return loss * (n / allreduce(n, mesh, SPLIT_AXES))
 
 
-def allreduce_grads(leaves: Iterable[torch.Tensor], mesh: Mesh) -> None:
-    """Sum each leaf's ``.grad`` over the ranks that split the batch, so
-    every rank holds the global batch's gradient."""
-    for t in leaves:
+def _sum_axes(spec) -> tuple:
+    """The batch axes a leaf's gradient is still to be summed over: those
+    its spec does not split (an FSDP gather's backward summed over its
+    own)."""
+    return tuple(a for a in SPLIT_AXES if a not in spec_axes(spec))
+
+
+def allreduce_grads(tree: Any, mesh: Mesh, specs: Any = None) -> None:
+    """Complete each leaf's ``.grad`` in ``tree`` (a parameter tree, or a
+    list of leaves) so every rank holds its shard of the global batch's
+    gradient: summed over the batch axes and ``sp`` that its spec in
+    ``specs`` (the tree's mirror; None: every leaf replicated) does not
+    split. Nothing is summed over ``tp``: a tp-split leaf's gradient is
+    its rank's own, and a replicated one's is whole on every tp rank."""
+    spec_of = dict(tree_paths(specs)) if specs is not None else {}
+    for path, t in tree_paths(tree):
         if t.grad is not None:
-            t.grad = allreduce(t.grad, mesh, SPLIT_AXES)
+            t.grad = allreduce(t.grad, mesh,
+                               _sum_axes(spec_of.get(path, ())))
+
+
+def global_grad_norm(tree: Any, mesh: Mesh, specs: Any = None
+                     ) -> torch.Tensor:
+    """The L2 norm of the global gradient from every rank's synced shards
+    (after ``allreduce_grads``): each rank's sums of squares, a leaf's
+    divided by the number of ranks that hold the same shard, summed over
+    the mesh. fp32, on every rank."""
+    spec_of = dict(tree_paths(specs)) if specs is not None else {}
+    total = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    for path, t in tree_paths(tree):
+        if t.grad is None:
+            continue
+        split = spec_axes(spec_of.get(path, ()))
+        copies = math.prod(n for a, n in mesh.shape.items()
+                           if a not in split) if mesh.distributed else 1
+        total = total + t.grad.float().square().sum() / copies
+    if mesh.distributed:
+        total = allreduce(total, mesh, AXES)
+    return total.sqrt()

@@ -26,6 +26,7 @@ import torch
 from ..ops.attention import flash_attention
 from . import collectives
 from .mesh import Mesh, rank_shards
+from .ring_attention import check_axes
 
 
 class _AllToAll(torch.autograd.Function):
@@ -95,14 +96,18 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def make_ulysses_attention(mesh: Mesh, *, causal: bool = True,
-                           axis: str = "sp"):
+                           axis: str = "sp", batch_axes=("dp", "fsdp")):
     """Ulysses over ``mesh``'s ``axis`` as an ``attn_impl`` for
     ``models.llama``, with the inputs ``make_ring_attention``'s function
     takes: global tensors on a one-device mesh, this rank's shards on a
-    process-group mesh."""
+    process-group mesh, its rows of the batch over ``batch_axes``. Where
+    the model splits heads over ``tp`` a rank passes its own heads and the
+    exchange runs on them; JAX's spec leaves heads whole, so there every
+    tp rank computes every head, to the same result."""
 
     def attend(q, k, v, causal: bool = causal,
                scale: Optional[float] = None):
+        check_axes(mesh, q, k, batch_axes, None)
         return ulysses_attention(q, k, v, mesh, axis=axis, causal=causal,
                                  scale=scale)
 

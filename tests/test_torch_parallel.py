@@ -14,6 +14,15 @@ only in the order of their sums (blockwise against whole-block softmax,
 another merge order), so values are held at rtol 1e-5 and atol 1e-5 and
 gradients, which pass through more sums, at rtol 1e-4 and atol 2e-5.
 
+The same group runs the FSDP/TP slice: the meshes fsdp=4, fsdp=2 x tp=2
+and tp=2 x sp=2 (the dryrun's), each with the dense loss and with remat
+plus the chunked loss, a small Llama's shards from ``shard_params``, the
+loss, every gathered gradient and every gathered parameter after one AdamW
+step against JAX's ``loss_fn``, ``jax.grad`` and ``optax.adamw`` under a
+mesh of the same shape with ``shardings_for_tree`` applied; Ulysses under
+tp=2 x sp=2; ``shard_params`` then ``gather_params`` giving the tree back
+bit for bit; and ``dryrun_rank``.
+
 JAX is imported inside the tests only: the gloo children import this
 module again, and they must not load JAX.
 """
@@ -30,10 +39,14 @@ import torch.multiprocessing as mp
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models.convert import params_from_numpy, trainable
 from ray_tpu_torch.ops import attention as tattn
+from ray_tpu_torch.ops import chunked_xent as tchunked
+from ray_tpu_torch.ops import layers as tlayers
 from ray_tpu_torch.parallel import (MeshSpec, collectives, make_mesh,
                                     make_ring_attention,
                                     make_ulysses_attention, shard_batch)
+from ray_tpu_torch.parallel import dryrun as tdryrun
 from ray_tpu_torch.parallel import mesh as tmesh
+from ray_tpu_torch.parallel import sharding as tsharding
 from ray_tpu_torch.parallel import training as ttrain
 from ray_tpu_torch.parallel import ulysses as tuly
 
@@ -55,6 +68,14 @@ RING_SHAPE = (1, 64, 4, 16)     # B, L, H, D
 ULY_SHAPE = (2, 64, 8, 16)
 RING_CASES = [(2, True), (2, False), (1, True), (1, False)]  # kvh, causal
 ULY_KVH = (4, 2)                # aligned with sp=4, and the fallback
+# The FSDP/TP meshes and the sharded step's tokens and AdamW.
+SHARDED = {"fsdp4": dict(fsdp=4), "fsdp2tp2": dict(fsdp=2, tp=2),
+           "tp2sp2": dict(tp=2, sp=2)}
+SHARD_TOKENS = (4, 32)          # B, L: a row a rank at fsdp=4
+TRAFFIC_KEYS = ("allreduce", "allreduce_bytes", "allgather",
+                "allgather_bytes", "send_recv", "send_recv_bytes",
+                "host_staged")
+ADAMW = dict(lr=1e-3, weight_decay=0.1)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -86,9 +107,13 @@ def _uly_inputs(kvh):
     return _attn_inputs(30 + kvh, ULY_SHAPE, kvh)
 
 
-def _llama_tokens():
-    return np.random.default_rng(5).integers(
-        0, TCFG["vocab_size"], LLAMA_TOKENS).astype(np.int32)
+def _llama_tokens(shape=LLAMA_TOKENS, seed=5):
+    return np.random.default_rng(seed).integers(
+        0, TCFG["vocab_size"], shape).astype(np.int32)
+
+
+def _shard_tokens():
+    return _llama_tokens(SHARD_TOKENS, 6)
 
 
 def _flat(tree, prefix=""):
@@ -485,6 +510,17 @@ def _child(rank, store, out_dir, inputs):
             _llama(res, name, m, inputs)
             _llama(res, f"{name}_remat_chunked", m, inputs, remat=True,
                    chunked_vocab=CHUNK)
+        for name, sizes in SHARDED.items():
+            m = make_mesh(MeshSpec(**sizes), device=CPU)
+            _roundtrip(res, name, m, inputs)
+            ring = make_ring_attention(m, block_impl="flash")
+            _sharded_step(res, name, m, inputs, ring)
+            _sharded_step(res, f"{name}_remat_chunked", m, inputs, ring,
+                          remat=True, chunked_vocab=CHUNK)
+        _sharded_step(res, "tp2sp2_ulysses", m, inputs,
+                      make_ulysses_attention(m))
+        _vocab_losses(res, m, inputs["vocab"])
+        res["dryrun_loss"] = np.array(tdryrun.dryrun_rank(WORLD, device=CPU))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()
@@ -520,6 +556,12 @@ def _collectives(res, mesh, rank):
     res["index_size"] = np.array([collectives.axis_index(mesh, "sp"),
                                   collectives.axis_size(mesh, "sp")])
     assert torch.equal(x, torch.arange(4.0) * (rank + 1))  # left as it was
+    counted = make_mesh(MeshSpec(sp=SP), device=CPU, backend="gloo")
+    assert counted.backend == "gloo" and not counted.host_staged
+    collectives.allreduce(x, counted, "sp")
+    collectives.allgather(x[:2], counted, "sp")
+    collectives.permute(x[:3], counted, "sp")
+    res["traffic"] = np.array([counted.traffic[k] for k in TRAFFIC_KEYS])
 
 
 def _llama(res, name, mesh, inputs, **loss_kw):
@@ -537,6 +579,93 @@ def _llama(res, name, mesh, inputs, **loss_kw):
         res[f"{name}_grad.{key}"] = leaf.grad.numpy()
 
 
+def _roundtrip(res, name, mesh, inputs):
+    """shard_params then gather_params: every leaf back bit for bit, each
+    shard its contiguous block."""
+    params = params_from_numpy(inputs["params"], device=CPU)
+    specs = tsharding.shardings_for_tree(params, mesh)
+    shards = tsharding.shard_params(params, mesh, specs)
+    back = tsharding.gather_params(shards, mesh, specs)
+    for key, leaf in tsharding.tree_paths(back):
+        res[f"{name}_roundtrip.{key}"] = leaf.numpy()
+    res[f"{name}_shard_elems"] = np.array(
+        sum(t.numel() for _, t in tsharding.tree_paths(shards)))
+
+
+def _sharded_step(res, name, mesh, inputs, attn, **loss_kw):
+    """A small Llama's shards through sharded_loss_fn, the gradients
+    completed by allreduce_grads, one AdamW step on the shards; the global
+    loss, gradients and updated parameters gathered, and whether each
+    AdamW moment has its shard's shape and its parameter's spec."""
+    cfg = tllama.LlamaConfig(**TCFG, dtype=torch.float32)
+    params = params_from_numpy(inputs["params"], device=CPU)
+    specs = tsharding.shardings_for_tree(params, mesh)
+    shards = tsharding.shard_params(params, mesh, specs)
+    leaves = trainable(shards)
+    opt = torch.optim.AdamW(leaves, betas=(0.9, 0.999), eps=1e-8, **ADAMW)
+    share = ttrain.sharded_loss_fn(
+        shards, torch.from_numpy(inputs["shard_tokens"]), cfg, mesh,
+        attn_impl=attn, specs=specs, **loss_kw)
+    share.backward()
+    ttrain.allreduce_grads(shards, mesh, specs)
+    res[f"{name}_loss"] = collectives.allreduce(
+        share.detach(), mesh, ttrain.SPLIT_AXES).numpy()
+    res[f"{name}_grad_norm"] = ttrain.global_grad_norm(
+        shards, mesh, specs).numpy()
+    grads = tsharding.gather_params(
+        tsharding._map(lambda _, t: t.grad, shards), mesh, specs)
+    opt.step()
+    after = tsharding.gather_params(shards, mesh, specs)
+    for key, leaf in tsharding.tree_paths(grads):
+        res[f"{name}_grad.{key}"] = leaf.numpy()
+    for key, leaf in tsharding.tree_paths(after):
+        res[f"{name}_param.{key}"] = leaf.detach().numpy()
+    moment_specs = tsharding.optimizer_shardings(opt, specs)
+    leaf_specs = [sp for _, sp in tsharding.tree_paths(specs)]
+    res[f"{name}_moments_ok"] = np.array(all(
+        moment_specs[i]["exp_avg"] == moment_specs[i]["exp_avg_sq"]
+        == leaf_specs[i] and opt.state[p]["exp_avg"].shape == p.shape
+        for i, p in enumerate(leaves)))
+
+
+def _vocab_inputs():
+    """Logits, hidden states, a head and labels (some ignored, one at each
+    end of the vocab) for the vocab-split losses."""
+    rng = np.random.default_rng(8)
+    V, N, D = TCFG["vocab_size"], 12, 16
+    labels = rng.integers(0, V, N)
+    labels[:2], labels[2], labels[3] = -100, 0, V - 1
+    return dict(logits=_randn(rng, N, V) * 3, hidden=_randn(rng, N, D),
+                head=_randn(rng, D, V) * 0.5, labels=labels)
+
+
+def _vocab_losses(res, mesh, arrays):
+    """Both losses on this rank's half of the vocab over tp = 2: the dense
+    one with z-loss (loss, count, and the gradient of this rank's logits)
+    and the chunked one (loss, d_hidden summed over tp as the model's f
+    sums it, and this rank's columns of d_head)."""
+    V = TCFG["vocab_size"] // 2
+    vocab = tsharding.VocabShard(mesh, "tp", mesh.coords["tp"] * V,
+                                 TCFG["vocab_size"])
+    cols = slice(vocab.start, vocab.start + V)
+    labels = torch.from_numpy(arrays["labels"])
+    logits = torch.from_numpy(arrays["logits"][:, cols]).requires_grad_()
+    loss, n = tlayers.cross_entropy_loss(logits, labels, z_loss=1e-3,
+                                         vocab=vocab)
+    loss.backward()
+    res["vocab_dense"] = np.array([loss.item(), n.item()])
+    res["vocab_dense_dlogits"] = logits.grad.numpy()
+    hidden = torch.from_numpy(arrays["hidden"]).requires_grad_()
+    head = torch.from_numpy(arrays["head"][:, cols].copy()).requires_grad_()
+    loss = tchunked.chunked_cross_entropy(
+        collectives.allreduce_bwd(hidden, mesh, "tp"), head, labels, CHUNK,
+        vocab=vocab)
+    loss.backward()
+    res["vocab_chunked"] = np.array(loss.item())
+    res["vocab_chunked_dhidden"] = hidden.grad.numpy()
+    res["vocab_chunked_dhead"] = head.grad.numpy()
+
+
 @pytest.fixture(scope="module")
 def gloo_results(tmp_path_factory):
     """Spawn the group once; each rank's results as a dict."""
@@ -550,6 +679,8 @@ def gloo_results(tmp_path_factory):
         "params": jax.tree_util.tree_map(
             np.asarray, jllama.init_params(jcfg, jax.random.PRNGKey(1))),
         "tokens": _llama_tokens(),
+        "shard_tokens": _shard_tokens(),
+        "vocab": _vocab_inputs(),
     }
     tmp = tmp_path_factory.mktemp("gloo")
     mp.spawn(_child, args=(str(tmp / "store"), str(tmp), inputs),
@@ -609,6 +740,10 @@ def test_gloo_collectives(gloo_results):
         np.testing.assert_array_equal(
             res["send_recv"], xs[r - 2] if r >= 2 else np.zeros(4))
         np.testing.assert_array_equal(res["index_size"], [r, WORLD])
+        # a mesh's traffic: calls and bytes of this rank's input (fp32),
+        # none staged through the host on the CPU
+        np.testing.assert_array_equal(res["traffic"],
+                                      [1, 16, 1, 8, 1, 12, 0])
         # dp=2 x sp=2: JAX's axis order puts rank r at (r // 2, r % 2)
         np.testing.assert_array_equal(res["coords22"], [r // 2, r % 2])
         np.testing.assert_array_equal(res["allreduce22"], [10.0])
@@ -655,3 +790,168 @@ def test_gloo_llama_loss_and_synced_grads_match_jax(gloo_results, cpu_mesh8,
         for key, w in want.items():
             np.testing.assert_allclose(got[key], w, **GRAD_TOL,
                                        err_msg=f"rank {r} {key}")
+
+
+def _jax_sharded_step(cpu_mesh8, inputs, spec, attn, chunked):
+    """JAX's loss, gradients and parameters after one optax.adamw step,
+    under a mesh of ``spec``'s shape with shardings_for_tree applied and
+    the batch placed by batch_sharding; ``attn`` is "ring" (dense block
+    step) or "ulysses"."""
+    key = ("sharded", tuple(sorted(spec.items())), attn, chunked)
+    if key in _JAX_REFS:
+        return _JAX_REFS[key]
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from ray_tpu.models import llama as jllama
+    from ray_tpu.parallel import MeshSpec as JMeshSpec
+    from ray_tpu.parallel import apply_shardings, batch_sharding
+    from ray_tpu.parallel import make_mesh as jmake_mesh
+    from ray_tpu.parallel import make_ring_attention as jring
+    from ray_tpu.parallel import make_ulysses_attention as july
+    from ray_tpu.parallel import shardings_for_tree
+
+    jcfg = jllama.LlamaConfig(**TCFG, dtype=jnp.float32)
+    mesh = jmake_mesh(JMeshSpec(**spec), devices=cpu_mesh8[:WORLD])
+    fn = (jring(mesh, causal=True, block_impl="dense") if attn == "ring"
+          else july(mesh, causal=True))
+
+    def attn_impl(q, k, v, causal=True, **kw):
+        return fn(q, k, v)
+
+    params = jax.tree_util.tree_map(jnp.asarray, inputs["params"])
+    params = apply_shardings(params, shardings_for_tree(params, mesh))
+    tokens = jax.device_put(jnp.asarray(inputs["shard_tokens"]),
+                            batch_sharding(mesh))
+    opt = optax.adamw(ADAMW["lr"], weight_decay=ADAMW["weight_decay"])
+
+    @jax.jit
+    def step(params, tokens):
+        loss, grads = jax.value_and_grad(lambda p: jllama.loss_fn(
+            p, {"tokens": tokens}, jcfg, attn_impl=attn_impl, remat=True,
+            chunked_vocab=chunked))(params)
+        updates, _ = opt.update(grads, opt.init(params), params)
+        return loss, grads, optax.apply_updates(params, updates)
+
+    loss, grads, after = step(params, tokens)
+    _JAX_REFS[key] = (float(loss),
+                      {k: np.asarray(v) for k, v in _flat(grads).items()},
+                      {k: np.asarray(v) for k, v in _flat(after).items()})
+    return _JAX_REFS[key]
+
+
+def _rank_tree(res, prefix):
+    """A rank's flat leaves saved under ``prefix`` (``/``-joined paths), in
+    ``_flat``'s ``.``-joined keys."""
+    return {k[len(prefix):].replace("/", "."): v for k, v in res.items()
+            if k.startswith(prefix)}
+
+
+SHARDED_CASES = [(name, variant) for name in SHARDED
+                 for variant in ("", "_remat_chunked")] + \
+    [("tp2sp2", "_ulysses")]
+
+
+@pytest.mark.parametrize("name,variant", SHARDED_CASES)
+def test_gloo_sharded_step_matches_jax(gloo_results, cpu_mesh8, name,
+                                       variant):
+    """FSDP/TP: a small Llama's shards on each mesh, the ring (flash block
+    step) or Ulysses as its attention, dense or with remat and the chunked
+    loss: every rank's global loss, every gathered gradient and every
+    gathered parameter after one AdamW step against JAX's under a mesh of
+    the same shape; the global gradient norm from the shards is the norm
+    of JAX's gradients; AdamW's moments carry their shard's shape and
+    their parameter's spec."""
+    inputs, results = gloo_results
+    tag = name + variant
+    want_loss, want_grads, want_params = _jax_sharded_step(
+        cpu_mesh8, inputs, SHARDED[name],
+        "ulysses" if variant == "_ulysses" else "ring",
+        CHUNK if variant == "_remat_chunked" else 0)
+    want_norm = np.sqrt(sum(np.square(g.astype(np.float64)).sum()
+                            for g in want_grads.values()))
+    for r, res in enumerate(results):
+        np.testing.assert_allclose(res[f"{tag}_loss"], want_loss,
+                                   **VALUE_TOL, err_msg=f"rank {r}")
+        np.testing.assert_allclose(res[f"{tag}_grad_norm"], want_norm,
+                                   **VALUE_TOL, err_msg=f"rank {r}")
+        assert res[f"{tag}_moments_ok"], f"rank {r}"
+        for what, want, tol in (("grad", want_grads, GRAD_TOL),
+                                ("param", want_params, VALUE_TOL)):
+            got = _rank_tree(res, f"{tag}_{what}.")
+            assert got.keys() == want.keys()
+            for key, w in want.items():
+                np.testing.assert_allclose(got[key], w, **tol,
+                                           err_msg=f"rank {r} {what} {key}")
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_gloo_shard_then_gather_is_exact(gloo_results, name):
+    """gather_params inverts shard_params bit for bit, and the ranks'
+    shards together hold each element once per rank that shares it: the
+    whole tree over fsdp x tp, and once per sp rank as well."""
+    inputs, results = gloo_results
+    want = {k: np.asarray(v) for k, v in _flat(inputs["params"]).items()}
+    total = sum(w.size for w in want.values())
+    norms = sum(w.size for k, w in want.items() if k.endswith("norm"))
+    sizes = SHARDED[name]
+    split = sizes.get("fsdp", 1) * sizes.get("tp", 1)
+    for r, res in enumerate(results):
+        got = _rank_tree(res, f"{name}_roundtrip.")
+        assert got.keys() == want.keys()
+        for key, w in want.items():
+            np.testing.assert_array_equal(got[key], w,
+                                          err_msg=f"rank {r} {key}")
+        assert res[f"{name}_shard_elems"] == (total - norms) // split + norms
+
+
+def test_gloo_dryrun_rank_matches_loss_fn(gloo_results):
+    """``dryrun_rank`` in the group (tp=2 x sp=2 through the ring, remat,
+    one AdamW step) gives, on every rank, the loss of ``loss_fn`` on the
+    same weights and tokens on one device."""
+    _, results = gloo_results
+    spec = tdryrun.dryrun_spec(WORLD)
+    assert (spec.tp, spec.sp, spec.fsdp) == (2, 2, 1)
+    params, tokens = tdryrun.dryrun_inputs(spec, CPU)
+    with torch.no_grad():
+        want = tllama.loss_fn(params, {"tokens": tokens}, tdryrun.DRYRUN_CFG)
+    for r, res in enumerate(results):
+        np.testing.assert_allclose(res["dryrun_loss"], want.item(),
+                                   **VALUE_TOL, err_msg=f"rank {r}")
+
+
+def test_gloo_vocab_split_losses_match_jax(gloo_results):
+    """The losses on a vocab split over tp = 2, each rank holding half the
+    columns: the dense loss with z-loss and its count, and the chunked
+    loss (chunks of 40 over a 48-column half), against JAX's on the whole
+    vocab; each rank's gradients are its columns of JAX's, and d_hidden,
+    summed over tp, JAX's whole."""
+    import jax
+    import jax.numpy as jnp
+    from ray_tpu.ops import chunked_xent as jchunked
+    from ray_tpu.ops import layers as jlayers
+
+    inputs, results = gloo_results
+    a = {k: jnp.asarray(v) for k, v in inputs["vocab"].items()}
+    (loss, n), dlogits = jax.value_and_grad(
+        lambda x: jlayers.cross_entropy_loss(x, a["labels"], z_loss=1e-3),
+        has_aux=True)(a["logits"])
+    closs, (dh, dw) = jax.value_and_grad(
+        lambda h, w: jchunked.chunked_cross_entropy(h, w, a["labels"], CHUNK),
+        argnums=(0, 1))(a["hidden"], a["head"])
+    V = TCFG["vocab_size"] // 2
+    for r, res in enumerate(results):
+        cols = slice((r % 2) * V, (r % 2 + 1) * V)  # tp is the minor axis
+        np.testing.assert_allclose(res["vocab_dense"], [float(loss), float(n)],
+                                   **VALUE_TOL, err_msg=f"rank {r}")
+        np.testing.assert_allclose(res["vocab_dense_dlogits"],
+                                   np.asarray(dlogits)[:, cols], **GRAD_TOL,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(res["vocab_chunked"], float(closs),
+                                   **VALUE_TOL, err_msg=f"rank {r}")
+        np.testing.assert_allclose(res["vocab_chunked_dhidden"],
+                                   np.asarray(dh), **GRAD_TOL,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(res["vocab_chunked_dhead"],
+                                   np.asarray(dw)[:, cols], **GRAD_TOL,
+                                   err_msg=f"rank {r}")
