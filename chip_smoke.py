@@ -105,7 +105,39 @@ Phases, each of which raises on failure (the exit code is then not 0):
      phase 8's same recipe, the later losses below the first, each rank's
      launches at phase 8's rate, and per rank its ms per step, peak
      memory and the bytes each collective moved in a step. (d) the
-     dryrun's launcher, dryrun_multichip(4), on gloo.
+     dryrun's launcher, dryrun_multichip(4), on gloo. (e) phase 14's
+     Mixtral on ep = 4 (make_ep_moe_ffn, capacity factor E / k, so
+     nothing is dropped), phase 14's weights and tokens, 1 + 2 steps:
+     first loss and its CE part within 1e-2 and first gradient norm
+     within 1% of phase 14's, launches at its rate, 12 all-to-alls of an
+     fp32 [E, C, D] buffer a rank and step; and in (c) a small fp32
+     Mixtral on ep = 2 x tp = 2 and fsdp = 2 x ep = 2 against the CPU;
+ 13. Mixtral serving: Mixtral-8x7B's widths at 16 of its 32 layers (all
+     32 do not fit the card), random weights, mixtral_generate_greedy on
+     prompts of 40, 200 and 1024 tokens, 32 new tokens each (K1 launches
+     16 a prefill), the tokens held at every step to the argmax of a
+     teacher-forced forward on the decode's experts by phase 4's near-tie
+     rule, its router at every position and layer to ROUTER_DRIFT and
+     ROUTER_TIE, and a decode with a planted cache fault refused;
+     prefill and decode times, the decode step's device busy share and
+     the MoE's share of it, peak memory. Then a small fp32
+     Mixtral (head dim 64) against the CPU: logits, aux, loss and every
+     gradient, launches counted;
+ 14. Mixtral training on the one card: the same widths at 2 layers, bf16,
+     tokens [4, 2048], remat, AdamW(3e-4, weight decay 0.1), 1 + 2 steps
+     through the dense MoE; ms/step, tokens/s, peak memory, busy share,
+     MFU by the active parameters and by every expert's FLOPs; K2 launches
+     4 forward and 2 backward a step;
+ 15. ViT-B/16 at full width and depth: 128 random images, 1 + 2 AdamW
+     steps (K2 at [128, 197, 12/12, 64] non-causal, 12 + 12 launches a
+     step), the first loss and each leaf's gradient norm held to the
+     same step through dense_attention by VIT_RTOL and VIT_LEAF_RTOL, a
+     planted key-mask fault refused; the forward under no_grad (K1,
+     12 launches); a small fp32 ViT against the CPU.
+Phases 2 and 6 also hold the kernels at ViT's call (128, 197, 12/12, 64,
+non-causal), phase 2 at each of phase 13's prefills (1, L, 32/8, 128)
+and phase 6 at an ep rank's (1, 2048, 32/8, 128). Phases run
+in the order 1-5, 13, 6-11, 14, 12, 15.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -113,6 +145,7 @@ card's name and power limit again, and the device record.
 from __future__ import annotations
 
 import asyncio
+import functools
 import gc
 import json
 import math
@@ -122,6 +155,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 
 import torch
 
@@ -422,7 +456,10 @@ def check_kernel(attention, gen):
         (1, 256, 32, 8, 128, True), (1, 1024, 32, 8, 128, True),
         (1, 200, 32, 8, 128, True), (1, 256, 32, 8, 64, True),
         (1, 256, 32, 8, 128, False), (2, 256, 32, 8, 128, True),
+        (128, 197, 12, 12, 64, False),  # ViT-B/16: ragged, full, H = Hkv
     ]
+    shapes += [s for s in ((1, n, 32, 8, 128, True)  # Mixtral's prefills
+                           for n in MIXTRAL_PROMPTS) if s not in shapes]
     rows = []
     for B, L, H, Hkv, D, causal in shapes:
         q = torch.randn(B, L, H, D, generator=gen, device="cuda").bfloat16()
@@ -896,6 +933,258 @@ def decode_profile(eng, cfg, name):
     eng.run_to_completion()
 
 
+# Phase 13: Mixtral-8x7B's widths, 16 of its 32 layers (all 32 take 93.4
+# GB in bf16, more than the card holds); prompts and new tokens a request.
+MIXTRAL_SERVE_LAYERS = 16
+MIXTRAL_PROMPTS = (40, 200, 1024)
+MIXTRAL_NEW = 32
+# The cached decode against a teacher-forced forward over the same tokens
+# that takes, at every position and layer, the experts the decode took:
+# the two then compute one function and differ only where they round to
+# bf16, so every layer's router probabilities at every position (prefill
+# rows and steps) agree to ROUTER_DRIFT, the decode's experts are the
+# reference's top k but where the reference's k-th probability passes the
+# least of them by at most ROUTER_TIE (a near tie rounding may flip), and
+# at every step the decode's token is the reference's argmax or within
+# NEAR_TIE_ULPS bf16 steps of it. Read on an H100 80GB HBM3 (700 W): the
+# three prompts drift 9.9e-3 to 1.10e-2 and take ties of up to 6.2e-3; a
+# decode whose layer 8 loses its cache writes (planted_cache_fault) drifts
+# 6.8e-2 and takes a tie of 4.5e-2.
+ROUTER_DRIFT = 2.5e-2
+ROUTER_TIE = 1.5e-2
+
+
+class Refused(AssertionError):
+    """A hold's verdict that an output parts from its reference."""
+
+
+def router_rows(models, run):
+    """Run ``run()`` under no_grad and return its result and, for each
+    dense MoE call in order, the router probabilities [T, E] of its input's
+    rows (a decode loop's calls: each layer of the prefill, T the prompt's
+    length, then each layer of each step, T = 1)."""
+    from ray_tpu_torch.parallel import moe
+
+    rows = []
+    real = models.mixtral.moe_ffn_dense
+
+    def record(x, router, experts, k):
+        rows.append(moe.router_probs(x, router)[0])
+        return real(x, router, experts, k)
+
+    models.mixtral.moe_ffn_dense = record
+    try:
+        with torch.no_grad():
+            out = run()
+    finally:
+        models.mixtral.moe_ffn_dense = real
+    return out, rows
+
+
+def forced_forward(models, params, cfg, seq, experts):
+    """A teacher-forced forward over ``seq`` [1, T] whose MoE routes each
+    position of layer i to ``experts[i]`` [T, k], its gates renormalised
+    from its own probabilities, as ``top_k_gates`` does. Returns the
+    logits [T, V] and each layer's router probabilities [T, E]."""
+    from ray_tpu_torch.parallel import moe
+
+    real, probs = moe.top_k_gates, []
+
+    def forced(p, k):
+        idx = experts[len(probs)][None]
+        probs.append(p[0])
+        vals = p.gather(-1, idx)
+        return vals / vals.sum(-1, keepdim=True).clamp(min=1e-9), idx
+
+    moe.top_k_gates = forced
+    try:
+        with torch.no_grad():
+            logits, _ = models.mixtral.forward(params, seq, cfg)
+    finally:
+        moe.top_k_gates = real
+    return logits[0], probs
+
+
+def moe_agreement(models, params, cfg, prompt, got, what):
+    """Phase 13's hold of ``got``, the cached greedy tokens after
+    ``prompt``: the decode run again (the same shapes, so the same bits: it
+    must give ``got`` again) records each layer's router probabilities and
+    experts at every position, and a forced_forward over prompt + got[:-1]
+    with those experts is the reference (see ROUTER_DRIFT). Raises Refused
+    where the decode parts from it; returns the readings: the largest
+    drift, the largest tie taken and how many, the steps whose token is
+    not the reference's argmax and the largest margin among them."""
+    from ray_tpu_torch.parallel import moe
+
+    P, L, k = len(prompt), cfg.n_layers, cfg.top_k
+    again, rows = router_rows(models, lambda: models.mixtral_generate_greedy(
+        params, torch.tensor([prompt], device="cuda"), cfg,
+        max_new=len(got)))
+    if again[0].tolist() != got:
+        raise AssertionError(f"{what}: a second decode gave other tokens")
+    probs = [torch.cat(rows[i::L]) for i in range(L)]  # [P + len - 1, E]
+    experts = [moe.top_k_gates(p, k)[1] for p in probs]
+    logits, ref = forced_forward(models, params, cfg, torch.tensor(
+        [prompt + got[:-1]], device="cuda"), experts)
+    drift = max(float((a - b).abs().max()) for a, b in zip(ref, probs))
+    ties = [r.sort(-1, descending=True).values[:, k - 1]
+            - r.gather(-1, e).amin(-1) for r, e in zip(ref, experts)]
+    tie = max(float(t.max()) for t in ties)
+    n_ties = sum(int((t > 0).sum()) for t in ties)
+    step = logits[P - 1:].float()
+    top = step.amax(-1).tolist()
+    mine = step.gather(-1, torch.tensor(got, device="cuda")[:, None])
+    margins = [(s, t - m) for s, (t, m) in
+               enumerate(zip(top, mine[:, 0].tolist())) if t > m]
+    over = [(s, m) for s, m in margins
+            if m > NEAR_TIE_ULPS * bf16_step(top[s])]
+    reading = dict(drift=drift, tie=tie, ties=n_ties,
+                   parted=[s for s, _ in margins],
+                   margin=max((m for _, m in margins), default=0.0))
+    log(f"{what}: against the reference on the decode's experts: "
+        f"{json.dumps(reading)} (ROUTER_DRIFT {ROUTER_DRIFT}, ROUTER_TIE "
+        f"{ROUTER_TIE}, NEAR_TIE_ULPS {NEAR_TIE_ULPS})")
+    if not (drift <= ROUTER_DRIFT and tie <= ROUTER_TIE and not over):
+        raise Refused(f"{what}: parts from the reference: {reading}, steps "
+                      f"beyond a near tie {over}")
+    return reading
+
+
+def planted_cache_fault(models, params, cfg, prompt):
+    """moe_agreement's negative control: the greedy tokens after ``prompt``
+    from a decode whose layer n_layers // 2 loses each cache write after
+    the prefill (a step attends to its own K and V, but later steps find
+    zeros there), which moe_agreement must refuse. Returns the refusal."""
+    from ray_tpu_torch.models import llama
+
+    real, bad = llama._decode_step, cfg.n_layers // 2
+
+    def lossy(params, tokens, caches, start, cfg, cos, sin, ffn=None):
+        if start == 0:
+            return real(params, tokens, caches, start, cfg, cos, sin, ffn)
+        kept = [c[:, start].clone() for c in caches[bad]]
+        logits, caches = real(params, tokens, caches, start, cfg, cos, sin,
+                              ffn)
+        for c, old in zip(caches[bad], kept):
+            c[:, start] = old
+        return logits, caches
+
+    what = f"planted fault: layer {bad} loses its cache writes"
+    llama._decode_step = lossy
+    try:
+        with torch.no_grad():
+            got = models.mixtral_generate_greedy(
+                params, torch.tensor([prompt], device="cuda"), cfg,
+                max_new=MIXTRAL_NEW)[0].tolist()
+        try:
+            moe_agreement(models, params, cfg, prompt, got, what)
+        except Refused as refusal:
+            return str(refusal)
+    finally:
+        llama._decode_step = real
+    raise AssertionError(f"{what}: moe_agreement took its tokens")
+
+
+def serve_mixtral(models, attention):
+    """Phase 13, Mixtral serving: MIXTRAL_8X7B's widths at
+    MIXTRAL_SERVE_LAYERS layers, random weights from a seed, bf16;
+    mixtral_generate_greedy on MIXTRAL_PROMPTS with MIXTRAL_NEW new tokens
+    each (the main path: K1 launches n_layers a prefill), the tokens held
+    to a teacher-forced forward (moe_agreement); then the prefill and
+    decode step timed, the decode step profiled, and the MoE's share of
+    its device time. Frees the weights on return."""
+    cfg = replace(models.MIXTRAL_8X7B, n_layers=MIXTRAL_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = models.mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(13), device="cuda")
+    torch.cuda.synchronize()
+    log(f"init Mixtral-8x7B widths, {cfg.n_layers} layers: "
+        f"{cfg.param_count()} params ({cfg.active_param_count()} active) in "
+        f"{time.perf_counter() - t0} s, "
+        f"{torch.cuda.memory_allocated() / 2**30} GiB allocated")
+    prompt_gen = torch.Generator().manual_seed(14)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                             generator=prompt_gen).tolist()
+               for n in MIXTRAL_PROMPTS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts reset just before, read just after
+    for c in COUNTERS + ("dense_routes",):
+        setattr(attention, c, 0)
+    outs, secs = [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        out = models.mixtral_generate_greedy(
+            params, torch.tensor([p], device="cuda"), cfg,
+            max_new=MIXTRAL_NEW)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append(out[0].tolist())
+    counts = {c: getattr(attention, c) for c in COUNTERS + ("dense_routes",)}
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    expect = {"launches": cfg.n_layers * len(prompts), "bwd_launches": 0,
+              "stats_launches": 0, "dense_routes": 0}
+    if counts != expect:
+        raise AssertionError(f"Mixtral serving: launches {counts}, expected "
+                             f"{expect}")
+    for p, got in zip(prompts, outs):
+        if len(got) != MIXTRAL_NEW or \
+                not all(0 <= t < cfg.vocab_size for t in got):
+            raise AssertionError(f"bad Mixtral tokens {got}")
+    agree = [moe_agreement(models, params, cfg, p, got,
+                           f"Mixtral prompt of {len(p)}")
+             for p, got in zip(prompts, outs)]
+    log(f"Mixtral serving: prompts {list(MIXTRAL_PROMPTS)}, {MIXTRAL_NEW} "
+        f"new tokens each in {secs} s; launches {counts}; peak memory "
+        f"{peak / 2**30} GiB")
+    refusal = planted_cache_fault(models, params, cfg, prompts[0])
+    log(f"Mixtral serving, the hold's negative control refused: {refusal}")
+
+    # Where the time goes: the longest prompt's prefill, then decode steps
+    # on its cache.
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.quant import tree_leaves
+
+    prompt = torch.tensor([prompts[-1]], device="cuda")
+    ffn = models.mixtral._moe_decode_ffn
+    with torch.no_grad():
+        prefill_ms = time_ms(lambda: llama._prefill(
+            params, prompt, cfg, MIXTRAL_NEW, ffn=ffn), 3)
+        logits, caches, L, cos, sin = llama._prefill(
+            params, prompt, cfg, MIXTRAL_NEW, ffn=ffn)
+        tok = logits[:, -1].argmax(-1)[:, None]
+
+        def step():
+            return models.mixtral._decode_step(params, tok, caches, L, cfg,
+                                               cos, sin)
+
+        step_ms = time_ms(step, 10)
+        busy_ms, kernels = device_profile(step, 5)
+        x = torch.randn(1, 1, cfg.d_model, generator=torch.Generator(
+            device="cuda").manual_seed(15), device="cuda").to(cfg.dtype)
+        moe_ms = device_ms(lambda: [ffn(layer, x, cfg)
+                                    for layer in params["layers"]], 5)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    bound_ms = weights / H100_BYTES_PER_S * 1e3
+    log(f"Mixtral decode [1, 1] at {L} tokens of context: {step_ms} ms/step "
+        f"(bound {bound_ms} ms: {weights / 1e9} GB of weights at "
+        f"{H100_BYTES_PER_S / 1e12} TB/s); the device ran {busy_ms} ms, "
+        f"{busy_ms / step_ms} of the step; the MoE of its {cfg.n_layers} "
+        f"layers {moe_ms} ms of device time, {moe_ms / busy_ms} of it; "
+        f"prefill [1, {L}] {prefill_ms} ms")
+    log_top(kernels)
+    out = dict(launches=counts["launches"], seconds=secs, peak_gib=peak /
+               2**30, agreement=agree, prefill_ms=prefill_ms,
+               decode_ms=step_ms, decode_busy_share=busy_ms / step_ms,
+               moe_share=moe_ms / busy_ms, decode_bound_ms=bound_ms,
+               planted_fault=refusal)
+    del params, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 BWD_SHAPES = [  # (B, L, H, Hkv, D, causal): why
     (4, 2048, 32, 8, 64, True),    # the training shape (LLAMA3_1B)
     (1, 1024, 32, 8, 128, True),   # D = 128
@@ -905,6 +1194,8 @@ BWD_SHAPES = [  # (B, L, H, Hkv, D, causal): why
     (4, 2048, 32, 8, 128, True),   # D = 128 with 128-key dK/dV blocks
     (2, 2048, 16, 4, 64, True),    # a rank's call at fsdp = 2 x tp = 2
     (1, 2048, 32, 8, 64, True),    # a rank's call at fsdp = 4
+    (128, 197, 12, 12, 64, False),  # ViT-B/16: ragged, full mask, H = Hkv
+    (1, 2048, 32, 8, 128, True),   # Mixtral's call at an ep = 4 rank
 ]
 
 
@@ -1242,6 +1533,67 @@ def check_small_training(models, gen):
         f"gradients were {grads} (card, CPU)")
 
 
+# The small fp32 models of phases 12 (c), 13 and 15: head dim 64, which the
+# kernels take (MIXTRAL_DEBUG's 16 would route to dense attention).
+SMALL_MOE_CFG = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                     n_kv_heads=2, d_ff=512, n_experts=4, top_k=2)
+SMALL_VIT_CFG = dict(image_size=32, patch_size=8, num_classes=10,
+                     d_model=256, n_layers=2, n_heads=4, d_ff=512)
+
+
+def hold_tree_grads(got, want, what):
+    """Every gradient of two leaf lists by FP32_GRAD_RULE; the worst share
+    of its limit."""
+    return max(hold_grad(g.grad.cpu(), w.grad, FP32_GRAD_RULE,
+                         f"{what} grad {i}")[1]
+               for i, (g, w) in enumerate(zip(got, want)))
+
+
+def check_small_mixtral(models, attention, gen):
+    """Phase 13's fp32 check: a small Mixtral (SMALL_MOE_CFG) on the card
+    against the plain path on the CPU: logits and aux, then loss_fn (remat,
+    JAX's default) and every gradient, with each kernel's launches counted
+    (K1 n_layers for the logits; K2 twice n_layers forward under remat and
+    n_layers backward)."""
+    cfg = models.MixtralConfig(**SMALL_MOE_CFG, dtype=torch.float32)
+    params = models.mixtral.init_params(cfg, gen, device="cuda")
+    cpu_params = _host_copy(params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen,
+                           device="cuda")
+    for c in COUNTERS + ("dense_routes",):
+        setattr(attention, c, 0)
+    with torch.no_grad():
+        logits, aux = models.mixtral.forward(params, tokens, cfg)
+        want, want_aux = models.mixtral.forward(cpu_params, tokens.cpu(), cfg)
+    err, _ = hold(logits.cpu(), want, FP32_TOL, 0.0, "small Mixtral logits")
+    if not abs(aux.item() - want_aux.item()) <= 1e-5 * want_aux.item():
+        raise AssertionError(f"small Mixtral aux {aux.item()}, CPU "
+                             f"{want_aux.item()}")
+    leaves, cpu_leaves = (models.trainable(params),
+                          models.trainable(cpu_params))
+    loss = models.mixtral.loss_fn(params, {"tokens": tokens}, cfg)
+    loss.backward()
+    want_loss = models.mixtral.loss_fn(cpu_params, {"tokens": tokens.cpu()},
+                                       cfg)
+    want_loss.backward()
+    counts = _counts(attention)
+    n = cfg.n_layers
+    expect = {"launches": n + 2 * n, "bwd_launches": n, "stats_launches": 0,
+              "dense_routes": 0}
+    if counts != expect:
+        raise AssertionError(f"small Mixtral: launches {counts}, expected "
+                             f"{expect}")
+    if not abs(loss.item() - want_loss.item()) <= 1e-5 * want_loss.item():
+        raise AssertionError(f"small Mixtral loss {loss.item()}, CPU "
+                             f"{want_loss.item()}")
+    worst = hold_tree_grads(leaves, cpu_leaves, "small Mixtral")
+    log(f"small Mixtral fp32 (head dim 64, {cfg.n_experts} experts, top "
+        f"{cfg.top_k}): logits max_abs_err {err} (tol {FP32_TOL}), aux "
+        f"{aux.item()} (CPU {want_aux.item()}), loss {loss.item()} (CPU "
+        f"{want_loss.item()}), {len(leaves)} gradients, worst element "
+        f"{worst} of rule {FP32_GRAD_RULE}; launches {counts}")
+
+
 def check_small_sp(models, parallel, attention, gen):
     """Phase 10: a small fp32 model's loss and every gradient through ring
     attention (sp = 4 on one device, the flash block step) on the card,
@@ -1362,29 +1714,45 @@ COUNTERS = ("launches", "bwd_launches", "stats_launches")
 
 
 def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
-              chunked, expect, name, attn_impl=None, profile=True):
+              chunked, expect, name, attn_impl=None, profile=True,
+              model=None, batch=None, loss_kw=None, throughput=None):
     """One run of a training main path from weights drawn from ``seed``:
     ``warm`` + ``timed`` AdamW steps on the same tokens through
     ``attn_impl`` (``flash_attention`` unless given), with every launch
     count reset just before and read just after and held to ``expect``
     (counter name to launches), then, with ``profile``, one profiled step.
-    The weights and optimizer are freed on return."""
+    ``model`` is the family (``models``, a Llama, unless given:
+    ``models.mixtral``, ``models.vit``), ``batch`` its loss's batch
+    ({"tokens": tokens} unless given), ``loss_kw`` more arguments of its
+    ``loss_fn`` (``remat=None`` passes none) and ``throughput`` the items a
+    step trains, their name and FLOPs per item (the tokens and
+    ``flops_per_token`` unless given). The weights and optimizer are freed
+    on return."""
+    model = model or models
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = models.init_params(cfg, gen, device="cuda")
+    params = model.init_params(cfg, gen, device="cuda")
     leaves = models.trainable(params)
     opt = torch.optim.AdamW(leaves, lr=LR, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=0.1)
-    batch = {"tokens": tokens}
-    norms = []  # the first step's gradient norm
+    batch = batch if batch is not None else {"tokens": tokens}
+    kw = dict(loss_kw or {}, attn_impl=attn_impl)
+    if remat is not None:
+        kw["remat"] = remat
+    if chunked:
+        kw["chunked_vocab"] = chunked
+    if throughput is None:
+        B, L = tokens.shape
+        throughput = (B * L, f"tokens [{B}, {L}]",
+                      models.flops_per_token(cfg, L))
+    norms = []  # the first step's squared gradient norm of each leaf
 
     def step():
         opt.zero_grad(set_to_none=True)
-        loss = models.loss_fn(params, batch, cfg, remat=remat,
-                              chunked_vocab=chunked, attn_impl=attn_impl)
+        loss = model.loss_fn(params, batch, cfg, **kw)
         loss.backward()
         if not norms:
             norms.append(torch.stack([t.grad.float().square().sum()
-                                      for t in leaves]).sum().sqrt())
+                                      for t in leaves]))
         opt.step()
         return loss.detach()
 
@@ -1410,17 +1778,18 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
                              f"falling")
     if counts != {c: expect.get(c, 0) for c in COUNTERS}:
         raise AssertionError(f"{name}: launches {counts}, expected {expect}")
-    B, L = tokens.shape
-    tok_s = B * L / step_s
-    mfu = models.flops_per_token(cfg, L) * tok_s / H100_BF16_FLOPS
-    log(f"train LLAMA3_1B {name} [{B}, {L}]: losses {losses}; "
+    items, unit, flops_per_item = throughput
+    tok_s = items / step_s
+    mfu = flops_per_item * tok_s / H100_BF16_FLOPS
+    log(f"train {name}, {unit}: losses {losses}; "
         f"{step_s * 1e3} ms/step over {timed or warm} "
-        f"{'timed' if timed else 'untimed-warm'} steps = {tok_s} tokens/s, "
-        f"MFU {mfu}; peak memory {peak / 2**30} GiB; launches {counts} "
-        f"over {warm + timed} steps")
+        f"{'timed' if timed else 'untimed-warm'} steps = {tok_s} "
+        f"{unit.split()[0]}/s, MFU {mfu}; peak memory {peak / 2**30} GiB; "
+        f"launches {counts} over {warm + timed} steps")
     out = dict(losses=losses, step_ms=step_s * 1e3, tokens_per_s=tok_s,
-               mfu=mfu, peak_gib=peak / 2**30, grad_norm=float(norms[0]),
-               **counts)
+               mfu=mfu, peak_gib=peak / 2**30,
+               grad_norm=float(norms[0].sum().sqrt()),
+               leaf_norms=norms[0].sqrt().tolist(), **counts)
     if profile:
         busy_ms, kernels = device_profile(step, 1)
         log(f"train profile {name}: the device ran {busy_ms} ms in one "
@@ -1434,33 +1803,237 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
     return out
 
 
+# Phase 14: Mixtral-8x7B's widths at 2 of its 32 layers: 3.165 B
+# parameters, whose bf16 weights, gradients and AdamW moments (8 bytes a
+# parameter) take 25.3 GB, beside the dense MoE's activations (g, u and
+# silu(g) u at [8, 8192, 14336] bf16, 1.88 GB each, a layer at a time
+# under remat).
+MIXTRAL_TRAIN_LAYERS = 2
+MIXTRAL_TRAIN_SEED = 16
+
+
+def train_mixtral(models, parallel, attention, tokens):
+    """Phase 14: 1 + 2 AdamW steps of mixtral_train_cfg on ``tokens``
+    [4, 2048], remat on, the MoE dense (every expert on every token, as
+    JAX's single-device path); K2 launches 2 n_layers forward (remat runs
+    each forward twice) and n_layers backward a step. Returns train_run's
+    result with the first step's aux and CE, and MFU counted by the active
+    parameters (JAX's count for an MoE) beside train_run's, which counts
+    every expert's FLOPs, the work the dense path does."""
+    cfg = mixtral_train_cfg(models)
+    n, L = cfg.n_layers, tokens.shape[1]
+    log(f"Mixtral-8x7B widths, {n} layers: {cfg.param_count()} params, "
+        f"{cfg.active_param_count()} active; d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, {cfg.n_experts} experts, top {cfg.top_k}")
+    rec = AuxRecorder(lambda x, router, experts: parallel.moe_ffn_dense(
+        x, router, experts, cfg.top_k))
+    out = train_run(models, attention, cfg, tokens, seed=MIXTRAL_TRAIN_SEED,
+                    warm=1, timed=2, remat=True, chunked=0,
+                    expect={"launches": 2 * n * 3, "bwd_launches": n * 3},
+                    name=f"Mixtral-8x7B widths {n} layers remat (MFU by "
+                         f"every expert's FLOPs)",
+                    model=models.mixtral, loss_kw={"moe_ffn": rec})
+    out["aux"] = float(torch.stack(rec.aux[:n]).sum())
+    out["ce"] = out["losses"][0] - cfg.aux_coef * out["aux"]
+    active = 6 * cfg.active_param_count() + 12 * n * cfg.d_model * L
+    out["mfu_active"] = active * out["tokens_per_s"] / H100_BF16_FLOPS
+    log(f"Mixtral training: first loss {out['losses'][0]} = CE {out['ce']} "
+        f"+ {cfg.aux_coef} x aux {out['aux']}; gradient norm "
+        f"{out['grad_norm']}; MFU {out['mfu_active']} by the active "
+        f"parameters, {out['mfu']} by every expert's FLOPs")
+    return out
+
+
+# Phase 15: ViT-B/16 at full width and depth, its images and AdamW steps.
+VIT_IMAGES = 128
+VIT_SEED = 18
+# flash_attention against dense_attention on the same bf16 weights and
+# images: the two round attention's output to bf16 after fp32 sums taken in
+# another order, a step of 2**-8 at most in an element, through 12 layers.
+# The first loss is held to VIT_RTOL of the dense run's, and each leaf's
+# first gradient norm to VIT_LEAF_RTOL of its counterpart's: the loss at
+# random init is near ln(1000) whatever attention computes, so the leaves
+# carry the check. Its negative control, dense_attention blind to the keys
+# past the last whole tile of 64 (5 of 197: the tail a kernel's key mask
+# guards), must break the leaf rule. Read on an H100 80GB HBM3 (700 W):
+# the loss 1.24e-4 and the worst of 103 leaves 2.97e-3 from the dense
+# run's; the fault's loss 9.2e-4, its worst leaf 5.0e-2.
+VIT_RTOL = 5e-4
+VIT_LEAF_RTOL = 1e-2
+
+
+def vit_batch(cfg, n, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"images": torch.randn(n, cfg.image_size, cfg.image_size,
+                                  cfg.channels, generator=gen, device="cuda"),
+            "labels": torch.randint(0, cfg.num_classes, (n,), generator=gen,
+                                    device="cuda")}
+
+
+def train_vit(models, attention):
+    """Phase 15: ViT-B/16 (ViTConfig()), bf16, random weights from a seed,
+    VIT_IMAGES random images; 1 + 2 AdamW steps through flash_attention
+    (the main path: K2 at [128, 197, 12/12, 64] non-causal, 12 forward and
+    12 backward launches a step), the first step again through
+    dense_attention, the first loss and each leaf's gradient norm held by
+    VIT_RTOL and VIT_LEAF_RTOL, and once with a planted fault they must
+    refuse; then
+    the forward under no_grad (K1, 12 launches) and a small fp32 ViT
+    against the CPU."""
+    vit = models.vit
+    cfg = vit.ViTConfig()
+    n = cfg.n_layers
+    batch = vit_batch(cfg, VIT_IMAGES, VIT_SEED)
+    throughput = (VIT_IMAGES, f"images [{VIT_IMAGES}, {cfg.image_size}, "
+                  f"{cfg.image_size}, {cfg.channels}]",
+                  vit.flops_per_image(cfg))
+    log(f"ViT-B/16: {cfg.param_count()} params, {cfg.num_patches + 1} "
+        f"tokens, {cfg.n_heads} heads of {cfg.head_dim}")
+    flash = train_run(models, attention, cfg, None, seed=VIT_SEED, warm=1,
+                      timed=2, remat=None, chunked=0,
+                      expect={"launches": 3 * n, "bwd_launches": 3 * n},
+                      name="ViT-B/16", model=vit, batch=batch,
+                      throughput=throughput)
+    dense = train_run(models, attention, cfg, None, seed=VIT_SEED, warm=1,
+                      timed=0, remat=None, chunked=0, expect={},
+                      name="ViT-B/16 through dense_attention",
+                      attn_impl=attention.dense_attention, profile=False,
+                      model=vit, batch=batch, throughput=throughput)
+
+    def tail_blind(q, k, v, causal=False):
+        keys = k.shape[1] // 64 * 64
+        return attention.dense_attention(q, k[:, :keys], v[:, :keys], causal)
+
+    fault = train_run(models, attention, cfg, None, seed=VIT_SEED, warm=1,
+                      timed=0, remat=None, chunked=0, expect={},
+                      name="ViT-B/16, planted fault: dense_attention blind "
+                           "to keys 192..196", attn_impl=tail_blind,
+                      profile=False, model=vit, batch=batch,
+                      throughput=throughput)
+
+    def worst_leaf(run):  # the largest relative gap of a leaf's norm
+        return max(abs(g - w) / w for g, w in
+                   zip(run["leaf_norms"], dense["leaf_norms"]))
+
+    loss_gap = abs(flash["losses"][0] - dense["losses"][0]) / \
+        abs(dense["losses"][0])
+    leaf_gap, fault_gap = worst_leaf(flash), worst_leaf(fault)
+    log(f"ViT-B/16 first step against dense_attention: loss "
+        f"{flash['losses'][0]} and {dense['losses'][0]} ({loss_gap}, rule "
+        f"{VIT_RTOL}); gradient norm {flash['grad_norm']} and "
+        f"{dense['grad_norm']}; worst of {len(dense['leaf_norms'])} leaf "
+        f"norms {leaf_gap} (rule {VIT_LEAF_RTOL}); the planted fault's loss "
+        f"{fault['losses'][0]}, worst leaf {fault_gap}")
+    if not (loss_gap <= VIT_RTOL and leaf_gap <= VIT_LEAF_RTOL):
+        raise AssertionError("ViT-B/16 through flash_attention parts from "
+                             "dense_attention")
+    if not fault_gap > VIT_LEAF_RTOL:
+        raise AssertionError("ViT-B/16's leaf rule took the planted fault")
+    flash.update(loss_gap=loss_gap, leaf_gap=leaf_gap, fault_gap=fault_gap)
+
+    params = vit.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(VIT_SEED), device="cuda")
+    for c in COUNTERS + ("dense_routes",):
+        setattr(attention, c, 0)
+    with torch.no_grad():
+        logits = vit.forward(params, batch["images"], cfg)
+    torch.cuda.synchronize()
+    forward_launches = _counts(attention)
+    if forward_launches != {"launches": n, "bwd_launches": 0,
+                            "stats_launches": 0, "dense_routes": 0} or \
+            logits.shape != (VIT_IMAGES, cfg.num_classes) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"ViT-B/16 forward: {tuple(logits.shape)}, "
+                             f"launches {forward_launches}")
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: vit.forward(params, batch["images"], cfg), 5)
+    log(f"ViT-B/16 forward under no_grad, {VIT_IMAGES} images: {fwd_ms} ms, "
+        f"{VIT_IMAGES / fwd_ms * 1e3} images/s; launches {forward_launches}")
+    del params, logits, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = vit.ViTConfig(**SMALL_VIT_CFG, dtype=torch.float32)
+    params = vit.init_params(small, torch.Generator(device="cuda")
+                             .manual_seed(19), device="cuda")
+    cpu_params = _host_copy(params)
+    sbatch = vit_batch(small, 8, 20)
+    cpu_batch = {k: v.cpu() for k, v in sbatch.items()}
+    for c in COUNTERS + ("dense_routes",):
+        setattr(attention, c, 0)
+    with torch.no_grad():
+        err, _ = hold(vit.forward(params, sbatch["images"], small).cpu(),
+                      vit.forward(cpu_params, cpu_batch["images"], small),
+                      FP32_TOL, 0.0, "small ViT logits")
+    leaves, cpu_leaves = (models.trainable(params),
+                          models.trainable(cpu_params))
+    loss = vit.loss_fn(params, sbatch, small)
+    loss.backward()
+    want = vit.loss_fn(cpu_params, cpu_batch, small)
+    want.backward()
+    counts = _counts(attention)
+    expect = {"launches": 2 * small.n_layers,
+              "bwd_launches": small.n_layers, "stats_launches": 0,
+              "dense_routes": 0}
+    if counts != expect or \
+            not abs(loss.item() - want.item()) <= 1e-5 * want.item():
+        raise AssertionError(f"small ViT: loss {loss.item()} (CPU "
+                             f"{want.item()}), launches {counts}, expected "
+                             f"{expect}")
+    worst = hold_tree_grads(leaves, cpu_leaves, "small ViT")
+    log(f"small ViT fp32 (image 32, patch 8: 17 tokens, 4 heads of 64): "
+        f"logits max_abs_err {err} (tol {FP32_TOL}), loss {loss.item()} "
+        f"(CPU {want.item()}), {len(leaves)} gradients, worst element "
+        f"{worst} of rule {FP32_GRAD_RULE}; launches {counts}")
+    return flash, forward_launches["launches"], fwd_ms
+
+
 # Phase 12: sharded training, 4 ranks on the one card. LLAMA3_1B's runs:
 # name -> (mesh sizes, remat, chunked vocab, phase 8's run of that recipe).
 SHARDED_RUNS = {
     "fsdp=2 x tp=2, dense": (dict(fsdp=2, tp=2), False, 0, "dense"),
     "fsdp=4, remat + chunked": (dict(fsdp=4), True, 16384, "remat"),
 }
+# (e): phase 14's Mixtral on ep = 4, capacity factor E / k, so that a rank
+# may send all its tokens to one expert and none is dropped.
+EP_RUN = "ep=4, Mixtral 2 layers, remat"
 SHARDED_STEPS = (1, 2)  # warm-up, timed
-# The small fp32 model: head dim 64, so tp = 2 leaves each rank 2/1 heads
-# for the kernels. name -> (mesh sizes, attention, remat, chunked vocab).
+# The small fp32 models: head dim 64, so tp = 2 leaves each rank 2/1 heads
+# for the kernels. name -> (mesh sizes, attention, remat, chunked vocab,
+# MoE); the Mixtral's through make_ep_moe_ffn at its capacity factor 2.0
+# (= E / k: nothing dropped), remat on (JAX's default).
 SMALL_CFG = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
                  n_kv_heads=2, d_ff=512)
 SMALL_TOKENS = (2, 128)
+SMALL_MOE_TOKENS = (4, 64)  # a row a token shard at fsdp = 2 x ep = 2
 SHARDED_SMALL_RUNS = {
-    "tp=2 x sp=2, sp ring (flash)": (dict(tp=2, sp=2), "ring", False, 0),
+    "tp=2 x sp=2, sp ring (flash)": (dict(tp=2, sp=2), "ring", False, 0,
+                                     False),
     "fsdp=2 x tp=2, flash_attention, remat + chunked":
-        (dict(fsdp=2, tp=2), None, True, 128),
+        (dict(fsdp=2, tp=2), None, True, 128, False),
+    "ep=2 x tp=2, Mixtral, remat": (dict(ep=2, tp=2), None, True, 0, True),
+    "fsdp=2 x ep=2, Mixtral, remat": (dict(fsdp=2, ep=2), None, True, 0,
+                                      True),
 }
 WORLD = 4
 
 
-def _small_inputs(models):
-    """Phase 12 (c)'s fp32 weights and tokens, from CPU generators, so the
-    ranks and the parent's CPU reference draw the same ones."""
-    cfg = models.LlamaConfig(**SMALL_CFG, dtype=torch.float32)
-    params = models.init_params(cfg, torch.Generator().manual_seed(12),
-                                device="cpu")
-    tokens = torch.randint(0, cfg.vocab_size, SMALL_TOKENS,
+def _small_inputs(models, moe=False):
+    """Phase 12 (c)'s fp32 weights and tokens (a Llama, or with ``moe`` a
+    Mixtral), from CPU generators, so the ranks and the parent's CPU
+    reference draw the same ones."""
+    if moe:
+        cfg = models.MixtralConfig(**SMALL_MOE_CFG, dtype=torch.float32)
+        params = models.mixtral.init_params(
+            cfg, torch.Generator().manual_seed(12), device="cpu")
+        shape = SMALL_MOE_TOKENS
+    else:
+        cfg = models.LlamaConfig(**SMALL_CFG, dtype=torch.float32)
+        params = models.init_params(cfg, torch.Generator().manual_seed(12),
+                                    device="cpu")
+        shape = SMALL_TOKENS
+    tokens = torch.randint(0, cfg.vocab_size, shape,
                            generator=torch.Generator().manual_seed(13))
     return cfg, params, tokens
 
@@ -1469,27 +2042,35 @@ def _counts(attention):
     return {c: getattr(attention, c) for c in COUNTERS + ("dense_routes",)}
 
 
+def _specs(models, parallel, params, mesh):
+    """A tree's specs: mixtral_shardings for an MoE, LLAMA_RULES else."""
+    if "router" in params["layers"][0]:
+        return models.mixtral_shardings(params, mesh)
+    return parallel.shardings_for_tree(params, mesh)
+
+
 def sharded_small(models, parallel, attention, sizes, attn, remat, chunked,
-                  grads_path):
+                  moe, grads_path):
     """Phase 12 (c) in one rank: the small model's shards on the mesh, its
     share's backward, the gradients completed; returns the global loss and
     this rank's launches, and rank 0 saves the gathered gradients."""
     from ray_tpu_torch.parallel import collectives, training
 
-    cfg, params, tokens = _small_inputs(models)
+    cfg, params, tokens = _small_inputs(models, moe)
     mesh = parallel.make_mesh(parallel.MeshSpec(**sizes), device="cuda",
                               backend="gloo")
     params = _tree_map(lambda t: t.to("cuda"), params)
-    specs = parallel.shardings_for_tree(params, mesh)
+    specs = _specs(models, parallel, params, mesh)
     shards = parallel.shard_params(params, mesh, specs)
     models.trainable(shards)
     impl = (parallel.make_ring_attention(mesh, block_impl="flash")
             if attn == "ring" else None)
     for c in COUNTERS + ("dense_routes",):
         setattr(attention, c, 0)
+    kw = {"forward": models.mixtral.sharded_forward} if moe else {}
     share = parallel.sharded_loss_fn(shards, tokens.to("cuda"), cfg, mesh,
                                      attn_impl=impl, remat=remat,
-                                     chunked_vocab=chunked, specs=specs)
+                                     chunked_vocab=chunked, specs=specs, **kw)
     share.backward()
     parallel.allreduce_grads(shards, mesh, specs)
     torch.cuda.synchronize()
@@ -1504,21 +2085,37 @@ def sharded_small(models, parallel, attention, sizes, attn, remat, chunked,
         shards["layers"][0]["wk"].shape[1] // cfg.head_dim], **counts)
 
 
+class AuxRecorder:
+    """A ``moe_ffn`` that keeps each call's aux: a step's first n_layers
+    calls are its forward's (remat's recompute calls again in the
+    backward)."""
+
+    def __init__(self, fn):
+        self.fn, self.aux = fn, []
+
+    def __call__(self, x, router, experts):
+        out, aux = self.fn(x, router, experts)
+        self.aux.append(aux.detach())
+        return out, aux
+
+
 def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
-                  chunked):
-    """Phase 12 (a) and (b) in one rank: phase 8's weights (seed 7) built
-    on the card, cut to this rank's shards and the rest freed, then
-    SHARDED_STEPS AdamW steps on phase 8's tokens through sharded_loss_fn
-    (flash_attention, K2, at this rank's heads and rows). Every launch
-    count and the mesh's traffic are reset just before the steps and read
-    just after."""
+                  chunked, model=None, seed=7):
+    """Phase 12 (a), (b) and (e) in one rank: phase 8's weights (seed 7),
+    or with ``model=models.mixtral`` phase 14's, built on the card, cut to
+    this rank's shards and the rest freed, then SHARDED_STEPS AdamW steps
+    on the phase's tokens through sharded_loss_fn (flash_attention, K2, at
+    this rank's heads and rows; a Mixtral's MoE through make_ep_moe_ffn,
+    whose aux the first step records). Every launch count and the mesh's
+    traffic are reset just before the steps and read just after."""
     from ray_tpu_torch.parallel import collectives, training
 
+    model = model or models
     mesh = parallel.make_mesh(parallel.MeshSpec(**sizes), device="cuda",
                               backend="gloo")
-    params = models.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
-    specs = parallel.shardings_for_tree(params, mesh)
+    params = model.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    specs = _specs(models, parallel, params, mesh)
     shards = parallel.shard_params(params, mesh, specs)
     del params
     gc.collect()
@@ -1526,13 +2123,19 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
     leaves = models.trainable(shards)
     opt = torch.optim.AdamW(leaves, lr=LR, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=0.1)
+    loss_kw, aux_rec = {}, None
+    if model is models.mixtral:
+        aux_rec = AuxRecorder(parallel.make_ep_moe_ffn(
+            mesh, cfg.top_k, cfg.capacity_factor))
+        loss_kw["forward"] = functools.partial(
+            models.mixtral.sharded_forward, moe_ffn=aux_rec)
     norms = []  # the first step's global gradient norm
 
     def step():
         opt.zero_grad(set_to_none=True)
         share = parallel.sharded_loss_fn(shards, tokens, cfg, mesh,
                                          remat=remat, chunked_vocab=chunked,
-                                         specs=specs)
+                                         specs=specs, **loss_kw)
         share.backward()
         parallel.allreduce_grads(shards, mesh, specs)
         if not norms:
@@ -1570,16 +2173,29 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
                traffic_per_step={k: (v - after_warm.get(k, 0)) / timed
                                  for k, v in sorted(mesh.traffic.items())},
                **counts)
+    if aux_rec is not None:  # the first step's aux, summed over the ranks
+        aux = collectives.allreduce(
+            torch.stack(aux_rec.aux[:cfg.n_layers]).sum(), mesh,
+            training.SPLIT_AXES)
+        out["aux"] = float(aux)
+        out["ce"] = out["losses"][0] - cfg.aux_coef * out["aux"]
     del shards, leaves, opt, step
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def sharded_rank(rank, tmp, tokens):
+def mixtral_train_cfg(models):
+    """Phases 14 and 12 (e): Mixtral-8x7B's widths at
+    MIXTRAL_TRAIN_LAYERS layers; capacity factor E / k for the EP run."""
+    cfg = replace(models.MIXTRAL_8X7B, n_layers=MIXTRAL_TRAIN_LAYERS)
+    return replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def sharded_rank(rank, tmp, tokens, moe_tokens):
     """Phase 12's body in rank ``rank`` of the 4-process group: (c) the
-    small model's runs, then (a) and (b); results to ``tmp``. A failure
-    raises out of the process, and the parent's spawn raises it."""
+    small models' runs, then (a), (b) and (e); results to ``tmp``. A
+    failure raises out of the process, and the parent's spawn raises it."""
     import datetime
 
     import torch.distributed as dist
@@ -1594,42 +2210,63 @@ def sharded_rank(rank, tmp, tokens):
         rank=rank, world_size=WORLD, timeout=datetime.timedelta(seconds=600))
     try:
         out = {"small": {}, "train": {}}
-        for i, (name, (sizes, attn, remat, chunked)) in enumerate(
-                SHARDED_SMALL_RUNS.items()):
+        for i, (name, run) in enumerate(SHARDED_SMALL_RUNS.items()):
             out["small"][name] = sharded_small(
-                models, parallel, attention, sizes, attn, remat, chunked,
+                models, parallel, attention, *run,
                 os.path.join(tmp, f"small{i}.pt"))
         tokens = tokens.to("cuda")
         for name, (sizes, remat, chunked, _) in SHARDED_RUNS.items():
             out["train"][name] = sharded_train(
                 models, parallel, attention, models.LLAMA3_1B, tokens,
                 sizes, remat, chunked)
+        out["train"][EP_RUN] = sharded_train(
+            models, parallel, attention, mixtral_train_cfg(models),
+            moe_tokens.to("cuda"), dict(ep=WORLD), True, 0,
+            model=models.mixtral, seed=MIXTRAL_TRAIN_SEED)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def small_reference(models, attn, remat, chunked):
-    """Phase 12 (c)'s model on the CPU, whole: loss and gradients."""
-    cfg, params, tokens = _small_inputs(models)
+def small_reference(models, attn, remat, chunked, moe, n_shards):
+    """Phase 12 (c)'s model on the CPU, whole: loss and gradients. For the
+    Mixtral, JAX's expert-parallel loss: the CE of the whole batch plus
+    aux_coef times the mean over the ``n_shards`` token shards of each
+    shard's aux (each shard's rows through the dense MoE, which computes
+    the EP function where nothing is dropped)."""
+    from ray_tpu_torch.models.llama import next_token_targets
+    from ray_tpu_torch.ops.layers import cross_entropy_loss
+
+    cfg, params, tokens = _small_inputs(models, moe)
     leaves = models.trainable(params)
-    loss = models.loss_fn(params, {"tokens": tokens}, cfg, remat=remat,
-                          chunked_vocab=chunked)
+    if not moe:
+        loss = models.loss_fn(params, {"tokens": tokens}, cfg, remat=remat,
+                              chunked_vocab=chunked)
+    else:
+        ce, count, aux = 0.0, 0.0, 0.0
+        for rows in tokens.chunk(n_shards):
+            logits, a = models.mixtral.forward(params, rows, cfg,
+                                               remat=remat)
+            mean, n = cross_entropy_loss(logits, next_token_targets(rows))
+            ce, count, aux = ce + mean * n, count + n, aux + a
+        loss = ce / count + cfg.aux_coef * aux / n_shards
     loss.backward()
     return loss.item(), [t.grad for t in leaves]
 
 
-def sharded_training(models, parallel, attention, tokens, phase8):
+def sharded_training(models, parallel, attention, tokens, phase8,
+                     moe_tokens, phase14):
     """Phase 12: 4 processes on this card, each with its own CUDA context,
     in one gloo group (their mesh built with backend="gloo", so every
-    collective is staged through host memory). (c) the small fp32 model on
-    tp = 2 x sp = 2 (the ring, K3) and fsdp = 2 x tp = 2 (flash_attention,
-    K2, remat + chunked), loss and every gathered gradient held to the
-    same model on the CPU; (a) and (b) LLAMA3_1B as SHARDED_RUNS, held to
-    phase 8's run of the same recipe (``phase8``: name to its result and
-    step count); (d) the dryrun's launcher. Returns (a) and (b)'s
-    per-rank results, and (c)'s."""
+    collective is staged through host memory). (c) the small fp32 models
+    as SHARDED_SMALL_RUNS (the ring, K3; flash_attention, K2; the EP MoE),
+    loss and every gathered gradient held to the same model on the CPU;
+    (a) and (b) LLAMA3_1B as SHARDED_RUNS, held to phase 8's run of the
+    same recipe (``phase8``: name to its result and step count); (e) phase
+    14's Mixtral on ep = 4, held to phase 14's run (``phase14``); (d) the
+    dryrun's launcher. Returns (a), (b) and (e)'s per-rank results, and
+    (c)'s."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -1640,8 +2277,8 @@ def sharded_training(models, parallel, attention, tokens, phase8):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(sharded_rank, args=(tmp, tokens.cpu()), nprocs=WORLD,
-                 join=True)
+        mp.spawn(sharded_rank, args=(tmp, tokens.cpu(), moe_tokens.cpu()),
+                 nprocs=WORLD, join=True)
         ranks = []
         for r in range(WORLD):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -1649,10 +2286,11 @@ def sharded_training(models, parallel, attention, tokens, phase8):
         small_grads = [torch.load(os.path.join(tmp, f"small{i}.pt"))
                        for i in range(len(SHARDED_SMALL_RUNS))]
     log(f"phase 12 ranks done in {time.perf_counter() - t0} s")
-    small_cfg = models.LlamaConfig(**SMALL_CFG, dtype=torch.float32)
-    for (name, (sizes, attn, remat, chunked)), grads in zip(
+    for (name, (sizes, attn, remat, chunked, moe)), grads in zip(
             SHARDED_SMALL_RUNS.items(), small_grads):
-        want, want_grads = small_reference(models, attn, remat, chunked)
+        shards = math.prod(sizes.get(a, 1) for a in ("dp", "fsdp", "ep"))
+        want, want_grads = small_reference(models, attn, remat, chunked,
+                                           moe, shards)
         got = [r["small"][name] for r in ranks]
         if not all(abs(g["loss"] - want) <= 1e-5 * abs(want) for g in got):
             raise AssertionError(f"(c) {name}: losses {[g['loss'] for g in got]}"
@@ -1660,7 +2298,7 @@ def sharded_training(models, parallel, attention, tokens, phase8):
         flat = [t for _, t in parallel.sharding.tree_paths(grads)]
         worst = max(hold_grad(g, w, FP32_GRAD_RULE, f"(c) {name} grad {i}")[1]
                     for i, (g, w) in enumerate(zip(flat, want_grads)))
-        n = small_cfg.n_layers
+        n = SMALL_CFG["n_layers"]
         expect = ({"stats_launches": n * sizes["sp"]} if attn == "ring" else
                   {"launches": 2 * n, "bwd_launches": n})
         for r, g in enumerate(got):
@@ -1673,19 +2311,24 @@ def sharded_training(models, parallel, attention, tokens, phase8):
             f"{FP32_GRAD_RULE}; local heads {got[0]['local_heads']}; "
             f"launches per rank {expect}")
     results = {}
-    for name, (sizes, remat, chunked, recipe) in SHARDED_RUNS.items():
-        ref, ref_steps = phase8[recipe]
+    runs = [(name, recipe, phase8[recipe])
+            for name, (*_, recipe) in SHARDED_RUNS.items()]
+    runs.append((EP_RUN, "phase 14", (phase14, sum(SHARDED_STEPS))))
+    for name, recipe, (ref, ref_steps) in runs:
         got = [r["train"][name] for r in ranks]
         first, norm = got[0]["losses"][0], got[0]["grad_norm"]
         if not all(g["losses"] == got[0]["losses"] for g in got):
             raise AssertionError(f"{name}: ranks' losses differ: "
                                  f"{[g['losses'] for g in got]}")
-        if not abs(first - ref["losses"][0]) <= 1e-2 * abs(ref["losses"][0]):
-            raise AssertionError(f"{name}: first loss {first}, phase 8's "
-                                 f"{ref['losses'][0]}")
+        held = [("first loss", first, ref["losses"][0])]
+        if "ce" in ref:
+            held.append(("CE", got[0]["ce"], ref["ce"]))
+        for what, x, want in held:
+            if not abs(x - want) <= 1e-2 * abs(want):
+                raise AssertionError(f"{name}: {what} {x}, {recipe}'s {want}")
         if not abs(norm - ref["grad_norm"]) <= 1e-2 * ref["grad_norm"]:
             raise AssertionError(f"{name}: first gradient norm {norm}, "
-                                 f"phase 8's {ref['grad_norm']}")
+                                 f"{recipe}'s {ref['grad_norm']}")
         losses = got[0]["losses"]
         if not (all(math.isfinite(x) for x in losses)
                 and all(x < losses[0] for x in losses[1:])):
@@ -1698,12 +2341,16 @@ def sharded_training(models, parallel, attention, tokens, phase8):
             counts = {c: g[c] for c in expect}
             if counts != expect:
                 raise AssertionError(f"{name} rank {r}: launches {counts}, "
-                                     f"expected {expect} (phase 8's rate)")
-        log(f"phase 12 {name}: losses {losses} (phase 8's first "
+                                     f"expected {expect} ({recipe}'s rate)")
+        log(f"phase 12 {name}: losses {losses} ({recipe}'s first "
             f"{ref['losses'][0]}, gap {first - ref['losses'][0]}); first "
-            f"gradient norm {norm} (phase 8's {ref['grad_norm']}, ratio "
+            f"gradient norm {norm} ({recipe}'s {ref['grad_norm']}, ratio "
             f"{norm / ref['grad_norm']}); launches per rank {expect} over "
             f"{steps} steps")
+        if "ce" in ref:
+            log(f"phase 12 {name}: first CE {got[0]['ce']} ({recipe}'s "
+                f"{ref['ce']}), aux over the token shards {got[0]['aux']} "
+                f"({recipe}'s, over the whole batch, {ref['aux']})")
         for r, g in enumerate(got):
             log(f"phase 12 {name} rank {r}: {g['step_ms']} ms/step over "
                 f"{SHARDED_STEPS[1]} timed steps (warm-up {g['warm_ms']} "
@@ -1711,6 +2358,21 @@ def sharded_training(models, parallel, attention, tokens, phase8):
                 f" GiB ({g['shard_params']} parameters), per step "
                 f"{json.dumps(g['traffic_per_step'])}")
         results[name] = got
+    # (e)'s exchanges: a layer's dispatch and return, each in the forward,
+    # remat's recompute and the backward; each an fp32 [E, C, D] buffer.
+    cfg = mixtral_train_cfg(models)
+    capacity = parallel.moe.default_capacity(
+        moe_tokens.numel() // WORLD, cfg.n_experts, cfg.top_k,
+        cfg.capacity_factor)
+    calls = 6 * cfg.n_layers
+    expect = (calls, calls * cfg.n_experts * capacity * cfg.d_model * 4)
+    for r, g in enumerate(results[EP_RUN]):
+        traffic = g["traffic_per_step"]
+        if (traffic.get("alltoall"), traffic.get("alltoall_bytes")) != expect:
+            raise AssertionError(f"{EP_RUN} rank {r}: all-to-all per step "
+                                 f"{traffic.get('alltoall')} calls, "
+                                 f"{traffic.get('alltoall_bytes')} bytes; "
+                                 f"expected {expect}")
     t0 = time.perf_counter()
     loss = parallel.dryrun_multichip(WORLD, device="cuda", backend="gloo")
     log(f"phase 12 (d) dryrun_multichip({WORLD}) on this card (gloo): loss "
@@ -1823,6 +2485,12 @@ def main() -> int:
     log(f"serving phases done at {time.perf_counter() - t_start} s; "
         f"{torch.cuda.memory_allocated() / 2**30} GiB still allocated")
 
+    # Phase 13: Mixtral serving at its full widths, then the small fp32
+    # Mixtral against the CPU.
+    mixtral_serve = serve_mixtral(models, attention)
+    check_small_mixtral(models, attention, gen)
+    log(f"phase 13 done at {time.perf_counter() - t_start} s")
+
     bwd_rows = check_bwd(attention, gen)
     check_small_training(models, gen)
 
@@ -1837,12 +2505,12 @@ def main() -> int:
                       timed=5, remat=False, chunked=0,
                       expect={"launches": cfg.n_layers * 6,
                               "bwd_launches": cfg.n_layers * 6},
-                      name="remat=False chunked_vocab=0")
+                      name="LLAMA3_1B remat=False chunked_vocab=0")
     remat = train_run(models, attention, cfg, tokens, seed=7, warm=1,
                       timed=2, remat=True, chunked=16384,
                       expect={"launches": cfg.n_layers * 6,
                               "bwd_launches": cfg.n_layers * 3},
-                      name="remat=True chunked_vocab=16384")
+                      name="LLAMA3_1B remat=True chunked_vocab=16384")
     # Both runs start from the same weights: the first losses differ only
     # by where the logits are rounded to bf16 (the dense head's output
     # against the chunked loss's fp32 products), a few bf16 steps (2**-8)
@@ -1865,19 +2533,19 @@ def main() -> int:
     ring = train_run(models, attention, cfg, tokens, seed=7, warm=1,
                      timed=3, remat=False, chunked=0,
                      expect={"stats_launches": cfg.n_layers * n * n * 4},
-                     name="sp=4 ring (flash)",
+                     name="LLAMA3_1B sp=4 ring (flash)",
                      attn_impl=parallel.make_ring_attention(
                          mesh, block_impl="flash"))
     k2 = train_run(models, attention, cfg, tokens, seed=7, warm=1, timed=2,
                    remat=False, chunked=0,
                    expect={"launches": cfg.n_layers * 3,
                            "bwd_launches": cfg.n_layers * 3},
-                   name="flash_attention")
+                   name="LLAMA3_1B flash_attention")
     uly = train_run(models, attention, cfg, tokens, seed=7, warm=1, timed=2,
                     remat=False, chunked=0,
                     expect={"launches": cfg.n_layers * n * 3,
                             "bwd_launches": cfg.n_layers * n * 3},
-                    name="sp=4 Ulysses",
+                    name="LLAMA3_1B sp=4 Ulysses",
                     attn_impl=parallel.make_ulysses_attention(mesh))
     # The same weights and tokens: the first losses differ only by the
     # attention's order of sums and where it rounds to bf16, a few bf16
@@ -1890,9 +2558,22 @@ def main() -> int:
     log(f"first loss [1, 8192]: {first}")
     ring_layer_times(attention, parallel, gen)
 
+    # Phase 14: Mixtral training on the one card; its weights and tokens
+    # are phase 12 (e)'s too.
+    moe_tokens = torch.randint(0, models.MIXTRAL_8X7B.vocab_size, (4, 2048),
+                               generator=gen, device="cuda")
+    mixtral_train = train_mixtral(models, parallel, attention, moe_tokens)
+    log(f"phase 14 done at {time.perf_counter() - t_start} s")
+
     sharded, small = sharded_training(models, parallel, attention,
                                       train_tokens, {"dense": (dense, 6),
-                                                     "remat": (remat, 3)})
+                                                     "remat": (remat, 3)},
+                                      moe_tokens, mixtral_train)
+    log(f"phase 12 done at {time.perf_counter() - t_start} s")
+
+    # Phase 15: ViT-B/16 training and inference.
+    vit_train, vit_forward_launches, vit_forward_ms = train_vit(models,
+                                                                attention)
 
     def sharded_launches(counter):
         """Phase 12's launches of a counter: per rank by run, and in all."""
@@ -1907,6 +2588,8 @@ def main() -> int:
     train_shape = "B=4 L=2048 H=32 Hkv=8 D=64 causal bf16"
     bwd_launches = (dense["bwd_launches"] + remat["bwd_launches"]
                     + k2["bwd_launches"] + uly["bwd_launches"]
+                    + mixtral_train["bwd_launches"]
+                    + vit_train["bwd_launches"]
                     + sharded_launches("bwd_launches")[1])
     mosaic = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [{
@@ -1916,12 +2599,18 @@ def main() -> int:
         "also_replaces": "ray_tpu/ops/attention.py:231 (forward)",
         "launches": serve_launches + sum(slice_launches.values())
         + dense["launches"] + remat["launches"] + k2["launches"]
-        + uly["launches"] + sharded_launches("launches")[1],
+        + uly["launches"] + mixtral_serve["launches"]
+        + mixtral_train["launches"] + vit_train["launches"]
+        + vit_forward_launches + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
                              "train_remat_chunked": remat["launches"],
                              "train_8k_flash_attention": k2["launches"],
                              "train_8k_ulysses": uly["launches"],
+                             "mixtral_serve": mixtral_serve["launches"],
+                             "mixtral_train": mixtral_train["launches"],
+                             "vit_train": vit_train["launches"],
+                             "vit_forward": vit_forward_launches,
                              **sharded_launches("launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -1957,6 +2646,9 @@ def main() -> int:
                                  "train_8k_flash_attention":
                                      k2["bwd_launches"],
                                  "train_8k_ulysses": uly["bwd_launches"],
+                                 "mixtral_train":
+                                     mixtral_train["bwd_launches"],
+                                 "vit_train": vit_train["bwd_launches"],
                                  **sharded_launches("bwd_launches")[0]},
             "max_abs_err": max(r[g]["max_abs_err"] for r in bwd_rows
                                for g in (("dk", "dv") if name == "dkdv"

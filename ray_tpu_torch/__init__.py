@@ -1,11 +1,12 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ``ray_tpu``'s compute tier.
 
-The serving, training, sequence-parallel and sharded slices: Llama-family
-model code (``models``, with a differentiable forward and ``loss_fn``), its
-ops (``ops``, with hand-written Hopper flash-attention forward, backward
-and ring-step kernels under ``csrc/``), the continuous-batching engine and
-the LLM server (``serve.llm``), and the mesh, collectives, FSDP/TP
-sharding, ring attention and Ulysses (``parallel``). A training step is ``loss_fn``, autograd and
+The serving, training, sequence-parallel, sharded and MoE slices:
+Llama-family, Mixtral (MoE) and ViT model code (``models``, each with a
+differentiable forward and ``loss_fn``), its ops (``ops``, with
+hand-written Hopper flash-attention forward, backward and ring-step
+kernels under ``csrc/``), the continuous-batching engine and the LLM
+server (``serve.llm``), and the mesh, collectives, FSDP/TP sharding,
+expert parallelism, ring attention and Ulysses (``parallel``). A training step is ``loss_fn``, autograd and
 ``torch.optim.AdamW`` over ``models.trainable(params)``. It imports
 ``torch`` and ``numpy`` only; the JAX package ``ray_tpu`` stays the
 reference the tests hold this one to.

@@ -13,8 +13,16 @@ from .llama import (
     next_token_targets,
 )
 
+from . import mixtral, vit
 from .convert import params_from_numpy, params_to_numpy, trainable
 from .engine import GenerationEngine
+from .mixtral import (
+    MIXTRAL_8X7B,
+    MIXTRAL_DEBUG,
+    MixtralConfig,
+    mixtral_shardings,
+)
+from .mixtral import generate_greedy as mixtral_generate_greedy
 from .paged import PagedEngine
 from .speculative import generate_speculative, truncated_draft
 
@@ -24,4 +32,6 @@ __all__ = [
     "flops_per_token", "generate_greedy", "generate_sample",
     "GenerationEngine", "PagedEngine", "generate_speculative",
     "truncated_draft", "params_from_numpy", "params_to_numpy", "trainable",
+    "mixtral", "MixtralConfig", "MIXTRAL_8X7B", "MIXTRAL_DEBUG",
+    "mixtral_shardings", "mixtral_generate_greedy", "vit",
 ]

@@ -4,7 +4,10 @@
 arrays (a JAX ``Q8`` leaf as a ``(w, s)`` pair) and returns the port's
 tree on ``device``, with the same names and ``[in, out]`` layout.
 ``params_to_numpy`` goes the other way, and ``trainable`` hands a tree's
-leaves to an optimizer.
+leaves to an optimizer. Any nesting of dicts and lists carries across as
+it is (a Mixtral layer's ``experts`` dict), and each leaf keeps its own
+dtype unless ``dtype`` is given: a bf16 Mixtral's fp32 ``router`` and a
+bf16 ViT's fp32 ``head`` stay fp32.
 
 A JAX bf16 array converts to a numpy array whose dtype is ``bfloat16``
 from ``ml_dtypes``; ``torch.from_numpy`` refuses it. Such an array is

@@ -319,10 +319,16 @@ def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
 
 @torch.no_grad()
 def _decode_step(params, tokens, caches, start: Union[int, torch.Tensor],
-                 cfg: LlamaConfig, cos, sin) -> Tuple[torch.Tensor, List[tuple]]:
+                 cfg: LlamaConfig, cos, sin,
+                 ffn=None) -> Tuple[torch.Tensor, List[tuple]]:
     """One cached forward over ``tokens`` [B, L] beginning at ``start``
     (an int, or a [B] tensor of per-row positions). ``caches`` are
-    per-layer ``(k, v)`` written in place; returns ``(logits, caches)``."""
+    per-layer ``(k, v)`` written in place; returns ``(logits, caches)``.
+    ``ffn(layer, x, cfg)`` is the feed-forward block, the dense SwiGLU MLP
+    unless given: the hook the MoE family (``models.mixtral``) shares this
+    loop through."""
+    if ffn is None:
+        ffn = _mlp_block
     B, L = tokens.shape
     x = params["embedding"][tokens.long()].to(cfg.dtype)
     if isinstance(start, int):
@@ -336,7 +342,7 @@ def _decode_step(params, tokens, caches, start: Union[int, torch.Tensor],
                                  kv_cache=(kc, vc, start),
                                  positions=positions)
         x = x + a
-        x = x + _mlp_block(layer, x, cfg)
+        x = x + ffn(layer, x, cfg)
         new_caches.append((nc[0], nc[1]))
     x = rms_norm(x, params["norm"], cfg.norm_eps)
     return mm(x, _head(params, cfg)), new_caches
@@ -351,24 +357,29 @@ def new_caches(cfg: LlamaConfig, batch: int, total: int, device
             for _ in range(cfg.n_layers)]
 
 
-def _prefill(params, prompt, cfg: LlamaConfig, max_new: int):
+def _prefill(params, prompt, cfg: LlamaConfig, max_new: int, ffn=None):
     B, L = prompt.shape
     total = L + max_new
     caches = new_caches(cfg, B, total, prompt.device)
     cos, sin = rope_frequencies(cfg.head_dim, total, cfg.rope_theta,
                                 device=prompt.device)
-    logits, caches = _decode_step(params, prompt, caches, 0, cfg, cos, sin)
+    logits, caches = _decode_step(params, prompt, caches, 0, cfg, cos, sin,
+                                  ffn=ffn)
     return logits, caches, L, cos, sin
 
 
 @torch.no_grad()
-def _generate(params, prompt, cfg: LlamaConfig, max_new: int, pick):
-    logits, caches, L, cos, sin = _prefill(params, prompt, cfg, max_new)
+def _generate(params, prompt, cfg: LlamaConfig, max_new: int, pick,
+              ffn=None):
+    """The decode loop; ``pick(logits) -> tokens``, ``ffn`` as in
+    ``_decode_step``."""
+    logits, caches, L, cos, sin = _prefill(params, prompt, cfg, max_new,
+                                           ffn=ffn)
     tok = pick(logits[:, -1])
     out = [tok]
     for pos in range(L, L + max_new - 1):
         logits, caches = _decode_step(params, tok[:, None], caches, pos, cfg,
-                                      cos, sin)
+                                      cos, sin, ffn=ffn)
         tok = pick(logits[:, -1])
         out.append(tok)
     return torch.stack(out, dim=1)

@@ -1,20 +1,24 @@
 """Training over a mesh: the port's ``ray_tpu/parallel``. The mesh and its
 process groups (``mesh``), the collectives over a mesh axis, with the
-gradient-carrying ones FSDP and TP need (``collectives``), the sharding
-rules and each rank's shards of a parameter tree (``sharding``), ring
-attention through the stats kernel and Ulysses (``ring_attention``,
-``ulysses``), a step's loss and gradients over a split batch and sharded
-parameters (``training``), and the sharded dryrun (``dryrun``). The ``pp``
-and ``ep`` axes are not ported yet."""
+gradient-carrying ones FSDP, TP, Ulysses and the MoE need
+(``collectives``), the sharding rules and each rank's shards of a
+parameter tree (``sharding``), ring attention through the stats kernel and
+Ulysses (``ring_attention``, ``ulysses``), the MoE and its expert
+parallelism over the ``ep`` axis (``moe``), a step's loss and gradients
+over a split batch and sharded parameters (``training``), and the sharded
+dryrun (``dryrun``). The ``pp`` axis is not ported yet."""
 
-from . import collectives
+from . import collectives, moe
 from .dryrun import dryrun_multichip, dryrun_rank
 from .mesh import (AXES, Mesh, MeshSpec, data_axes, local_batch_size,
                    make_mesh, mesh_spec_from_string, shard_batch)
+from .moe import (ep_moe_ffn, expert_shardings, make_ep_moe_ffn,
+                  moe_ffn_dense)
 from .ring_attention import make_ring_attention, ring_attention
-from .sharding import (LLAMA_RULES, Placement, activation_sharding,
-                       clean_spec, gather_params, optimizer_shardings,
-                       shard_params, shardings_for_tree, spec_for)
+from .sharding import (LLAMA_RULES, VIT_RULES, Placement,
+                       activation_sharding, clean_spec, gather_params,
+                       optimizer_shardings, shard_params, shardings_for_tree,
+                       spec_for)
 from .training import (allreduce_grads, global_grad_norm,
                        sharded_loss_fn)
 from .ulysses import make_ulysses_attention, ulysses_attention
@@ -24,8 +28,9 @@ __all__ = [
     "data_axes", "local_batch_size", "shard_batch", "collectives",
     "ring_attention", "make_ring_attention", "ulysses_attention",
     "make_ulysses_attention", "sharded_loss_fn", "allreduce_grads",
-    "global_grad_norm", "LLAMA_RULES", "spec_for", "clean_spec",
-    "shardings_for_tree", "shard_params", "gather_params",
+    "global_grad_norm", "LLAMA_RULES", "VIT_RULES", "spec_for",
+    "clean_spec", "shardings_for_tree", "shard_params", "gather_params",
     "optimizer_shardings", "activation_sharding", "Placement",
-    "dryrun_multichip", "dryrun_rank",
+    "dryrun_multichip", "dryrun_rank", "moe", "moe_ffn_dense",
+    "ep_moe_ffn", "make_ep_moe_ffn", "expert_shardings",
 ]

@@ -18,7 +18,9 @@ on one card; the tensors, the kernels and the autograd graph stay on the
 card.
 
 ``gather_param``, ``allreduce_fwd`` and ``allreduce_bwd`` carry a gradient
-of their own, for FSDP and tensor parallelism (``parallel/sharding.py``).
+of their own, for FSDP and tensor parallelism (``parallel/sharding.py``);
+``alltoall`` carries the exchange back as its gradient, for Ulysses and
+the MoE's expert parallelism (``parallel/moe.py``).
 
 The host tier (``HostCollectiveGroup``, reductions between actors through
 the object store) belongs to the runtime tier and is not ported here.
@@ -126,10 +128,17 @@ def alltoall(x: torch.Tensor, mesh: Mesh, axis: str = "sp", *,
              split_axis: int, concat_axis: int) -> torch.Tensor:
     """Split ``split_axis`` into one block per rank, send block j to rank
     j, and join the blocks received along ``concat_axis`` in rank order
-    (JAX's tiled ``all_to_all``)."""
-    group = mesh.group(axis)
-    if group is None:
+    (JAX's tiled ``all_to_all``). Differentiable, as JAX's is: the
+    gradient is the exchange back, split and join axes swapped (Ulysses'
+    head/sequence exchanges and the MoE's dispatch and return)."""
+    if mesh.group(axis) is None:
         return x.clone()
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
+
+
+def _alltoall(x: torch.Tensor, mesh: Mesh, axis: str, split_axis: int,
+              concat_axis: int) -> torch.Tensor:
+    group = mesh.group(axis)
     n = mesh.shape[axis]
     send = _wire(mesh, "alltoall", torch.stack(x.chunk(n, dim=split_axis)))
     recv = torch.empty_like(send)
@@ -193,6 +202,21 @@ class _GatherParam(torch.autograd.Function):
         mesh, axis, dim = ctx.args
         return reducescatter(g, mesh, axis, scatter_axis=dim), None, None, \
             None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``alltoall``'s exchange; its gradient is the exchange back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, split_axis, concat_axis)
+        return _alltoall(x, mesh, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        return (_alltoall(g, mesh, axis, concat_axis, split_axis),
+                None, None, None, None)
 
 
 class _AllReduceFwd(torch.autograd.Function):

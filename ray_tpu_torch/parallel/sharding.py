@@ -20,10 +20,14 @@ row-parallel and summed over ``tp``, the embedding's vocab split and its
 lookup summed over ``tp``). ``parallel.training.sharded_loss_fn`` runs a
 step on such shards.
 
-Not ported here: ``VIT_RULES`` comes with ``models/vit.py`` and
-``stage_submesh`` with the pipeline. ``constrain`` (a sharding hint inside
-``jit``) has no eager counterpart: each rank's tensors already are its
-shards. ``apply_shardings`` is ``shard_params``.
+An expert leaf of an MoE tree (``parallel/moe.py``'s ``expert_shardings``)
+also stays split over ``ep``: a rank holds its own experts and the tokens
+come to them.
+
+Not ported here: ``stage_submesh`` comes with the pipeline.
+``constrain`` (a sharding hint inside ``jit``) has no eager counterpart:
+each rank's tensors already are its shards. ``apply_shardings`` is
+``shard_params``.
 """
 
 from __future__ import annotations
@@ -57,8 +61,27 @@ LLAMA_RULES: Tuple[Tuple[str, Spec], ...] = (
     (r".*", ()),
 )
 
+
+# ViT family (models/vit.py): the same Megatron convention, qkv and up
+# column-parallel on tp, out and down row-parallel; patch embed
+# column-parallel; pos, cls and norms replicated; classifier head
+# column-parallel. Paths are '/'-joined.
+VIT_RULES: Tuple[Tuple[str, Spec], ...] = (
+    (r".*patch_embed/w$", ("fsdp", "tp")),
+    (r".*(wq|wk|wv)$", ("fsdp", "tp")),
+    (r".*wo$", ("tp", "fsdp")),
+    (r".*w_up$", ("fsdp", "tp")),
+    (r".*w_down$", ("tp", "fsdp")),
+    (r".*head/w$", ("fsdp", "tp")),
+    (r".*(pos_embed|cls_token|norm|scale|bias|/b)$", ()),
+    (r".*", ()),
+)
+
 #: The axis whose shards stay split in the model's products.
 TP = "tp"
+#: The axes ``Placement.param`` leaves split: tp (Megatron's products) and
+#: ep (each rank's own experts).
+KEPT_AXES = (TP, "ep")
 
 
 def spec_for(path: str, rules: Sequence[Tuple[str, Spec]] = LLAMA_RULES
@@ -243,16 +266,17 @@ class VocabShard:
 
 
 class Placement:
-    """A Llama parameter tree's shards on a process-group mesh, as
-    ``models.llama`` uses them: ``specs`` is ``shardings_for_tree`` of the
-    global tree (``LLAMA_RULES``), or None for a tree replicated on every
-    rank.
+    """A Llama or Mixtral parameter tree's shards on a process-group mesh,
+    as ``models.llama`` and ``models.mixtral`` use them: ``specs`` is
+    ``shardings_for_tree`` (``LLAMA_RULES``) or ``mixtral_shardings`` of
+    the global tree, or None for a tree replicated on every rank.
 
-    ``param`` gathers a leaf over every axis of its spec but ``tp``, with
-    a reduce-scatter as its gradient. Where the specs split the model's
-    products over ``tp`` (``tp`` > 1), each rank holds ``n_heads / tp``
-    query heads, ``n_kv_heads / tp`` kv heads, ``d_ff / tp`` hidden units
-    and ``vocab_size / tp`` rows of the vocab; ``enter`` and ``leave``
+    ``param`` gathers a leaf over every axis of its spec but ``tp`` and
+    ``ep``, with a reduce-scatter as its gradient. Where the specs split
+    the model's products over ``tp`` (``tp`` > 1), each rank holds
+    ``n_heads / tp`` query heads, ``n_kv_heads / tp`` kv heads,
+    ``d_ff / tp`` hidden units and ``vocab_size / tp`` rows of the vocab
+    (a Mixtral's experts too); ``enter`` and ``leave``
     are Megatron's f and g around each split block, ``embed`` the
     vocab-split lookup, and ``vocab`` the loss's slice. Otherwise ``tp``
     ranks run the whole model each, on the same rows."""
@@ -282,15 +306,17 @@ class Placement:
 
     def param(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """Leaf ``path`` as the model uses it: gathered over its axes but
-        ``tp``, minor axes first."""
+        ``KEPT_AXES``, minor axes first."""
         for dim, entry in enumerate(self.specs.get(path, ())):
             for a in reversed(_axes(entry)):
-                if a != TP:
+                if a not in KEPT_AXES:
                     t = collectives.gather_param(t, self.mesh, a, dim)
         return t
 
     def layer(self, i: int, layer: Dict[str, Any]) -> Dict[str, Any]:
-        return {k: self.param(f"layers/{i}/{k}", v) for k, v in layer.items()}
+        """Layer ``i``'s leaves as ``param`` gives them, nested dicts (an
+        MoE layer's ``experts``) included."""
+        return _map(self.param, layer, f"layers/{i}")
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """The input of a tp-split block: f, whose gradient sums the ranks'

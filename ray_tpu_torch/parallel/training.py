@@ -1,6 +1,7 @@
 """The loss and gradients of a step over a process-group mesh: the batch
 split over ``dp``, ``fsdp``, ``ep`` and ``sp``, the parameters sharded over
-``fsdp`` and ``tp`` as their specs say (``parallel/sharding.py``).
+``fsdp`` and ``tp`` as their specs say (``parallel/sharding.py``), and a
+Mixtral's experts over ``ep`` (``models.mixtral.sharded_forward``).
 
 JAX's ``loss_fn`` over sharded arrays is one global program: its mean is
 the global mean and ``jax.grad`` gives each parameter's whole gradient.
@@ -17,8 +18,9 @@ from typing import Any, Dict
 
 import torch
 
-from ..models.llama import (LlamaConfig, chunked_head_loss, forward,
-                            forward_hidden, next_token_targets)
+from ..models.llama import LlamaConfig, chunked_head_loss
+from ..models.llama import forward as llama_forward
+from ..models.llama import forward_hidden, next_token_targets
 from ..ops.chunked_xent import IGNORE
 from ..ops.layers import cross_entropy_loss
 from .collectives import allreduce
@@ -32,7 +34,7 @@ SPLIT_AXES = BATCH_AXES + ("sp",)
 def sharded_loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
                     cfg: LlamaConfig, mesh: Mesh, attn_impl=None,
                     remat: bool = False, chunked_vocab: int = 0,
-                    specs: Any = None) -> torch.Tensor:
+                    specs: Any = None, forward=None) -> torch.Tensor:
     """This rank's share of the mean next-token loss of the global batch
     ``tokens`` [B, L]: the shares of the ranks that split the batch sum to
     that mean, and ranks that differ only along ``tp`` hold the same share.
@@ -52,13 +54,23 @@ def sharded_loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
     this rank's rows and vocab slice. On a one-device mesh the ranks run
     in lockstep inside ``attn_impl`` on the whole tree and the share is
     the whole loss. The backward of the share gives this rank's part of
-    each gradient; ``allreduce_grads`` completes them."""
+    each gradient; ``allreduce_grads`` completes them.
+
+    ``forward(params, tokens, cfg, attn_impl=, remat=, seq_offset=,
+    shard=)`` is the model's forward on this rank's rows, returning
+    ``(logits, extra)``: ``extra`` None, or a term the rank adds to its
+    share as it is (``models.mixtral.sharded_forward``: its share of the
+    load-balance loss). Unless given, llama's forward with no term; only
+    llama's takes ``chunked_vocab``."""
     if mesh.shape["pp"] > 1:
         raise NotImplementedError("pp meshes are not ported yet")
+    if forward is not None and chunked_vocab > 0:
+        raise NotImplementedError("chunked_vocab streams llama's head only")
     tok = shard_batch(mesh, tokens)
     tgt = shard_batch(mesh, next_token_targets(tokens))
     seq_offset = mesh.coords["sp"] * tok.shape[1] if mesh.distributed else 0
     shard = Placement(mesh, cfg, specs) if mesh.distributed else None
+    extra = None
     if chunked_vocab > 0:
         x = forward_hidden(params, tok, cfg, remat=remat,
                            attn_impl=attn_impl, seq_offset=seq_offset,
@@ -67,13 +79,19 @@ def sharded_loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
                                  shard=shard)
         n = (tgt != IGNORE).sum().float()
     else:
-        logits = forward(params, tok, cfg, remat=remat, attn_impl=attn_impl,
-                         seq_offset=seq_offset, shard=shard)
+        logits, extra = (forward or _llama_forward)(
+            params, tok, cfg, attn_impl=attn_impl, remat=remat,
+            seq_offset=seq_offset, shard=shard)
         loss, n = cross_entropy_loss(logits, tgt,
                                      vocab=shard.vocab if shard else None)
-    if not mesh.distributed:
-        return loss  # every rank lives here: the share is the whole mean
-    return loss * (n / allreduce(n, mesh, SPLIT_AXES))
+    if mesh.distributed:
+        loss = loss * (n / allreduce(n, mesh, SPLIT_AXES))
+    # on a one-device mesh every rank lives here: the share is the whole
+    return loss if extra is None else loss + extra
+
+
+def _llama_forward(params, tokens, cfg, **kw):
+    return llama_forward(params, tokens, cfg, **kw), None
 
 
 def _sum_axes(spec) -> tuple:

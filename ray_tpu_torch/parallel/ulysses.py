@@ -29,24 +29,6 @@ from .mesh import Mesh, rank_shards
 from .ring_attention import check_axes
 
 
-class _AllToAll(torch.autograd.Function):
-    """``collectives.alltoall`` over a process group; its gradient is the
-    exchange back (split and join axes swapped)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
-        ctx.args = (mesh, axis, split_axis, concat_axis)
-        return collectives.alltoall(x, mesh, axis, split_axis=split_axis,
-                                    concat_axis=concat_axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        mesh, axis, split_axis, concat_axis = ctx.args
-        return (collectives.alltoall(g, mesh, axis, split_axis=concat_axis,
-                                     concat_axis=split_axis),
-                None, None, None, None)
-
-
 def _all_to_all(xs: List[torch.Tensor], mesh: Mesh, axis: str, *,
                 split_axis: int, concat_axis: int) -> List[torch.Tensor]:
     """Every exchange goes through this seam, so tests can count the bytes
@@ -54,7 +36,8 @@ def _all_to_all(xs: List[torch.Tensor], mesh: Mesh, axis: str, *,
     j gets block j of every rank's ``split_axis``, joined in rank order
     along ``concat_axis``."""
     if mesh.distributed:
-        return [_AllToAll.apply(xs[0], mesh, axis, split_axis, concat_axis)]
+        return [collectives.alltoall(xs[0], mesh, axis, split_axis=split_axis,
+                                     concat_axis=concat_axis)]
     blocks = [x.chunk(len(xs), dim=split_axis) for x in xs]
     return [torch.cat([b[j] for b in blocks], dim=concat_axis)
             for j in range(len(xs))]

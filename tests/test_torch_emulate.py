@@ -70,6 +70,8 @@ BWD_CASES = [  # (B, L, H, Hkv, D, causal, multiprocessors): why
     (2, 128, 4, 1, 64, True, 1),      # batch, 4 query heads a kv head
     (1, 130, 2, 1, 128, False, 132),  # D = 128, full mask
     (1, 96, 2, 2, 128, True, 1),      # D = 128, causal, 128-key blocks
+    (1, 197, 2, 2, 64, False, 132),   # ViT's: ragged, full mask, H = Hkv
+    (1, 197, 2, 2, 64, False, 1),     # the same with 128-key blocks
 ]
 
 
@@ -139,3 +141,26 @@ def test_forward_and_stats_kernels_match_their_plain_versions_on_the_host(
                     / float(wl.abs().max()), 1e-4))
     assert float((m - wm).abs().max()) <= 1e-4
     assert bool((m[:, :, :7] == tattn.NEG_INF).all())
+
+
+@pytest.mark.parametrize("B,L,H,Hkv,D,causal", [
+    (1, 197, 2, 2, 64, False),    # ViT's call: ragged, full mask, H = Hkv
+    (2, 130, 2, 2, 128, False),   # D = 128, a ragged last key block
+])
+def test_forward_kernel_masks_ragged_keys_without_causality_on_the_host(
+        libs, B, L, H, Hkv, D, causal):
+    """flash_fwd_tc_kernel at a length no tile divides with every key
+    visible: only the key mask stops the last block's padding; the output
+    (phase 2's rule) and the rows' log-sum-exp against the plain version."""
+    q, k, v, _ = _inputs(B, L, H, Hkv, D, torch.bfloat16, seed=L + D + 7)
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, L)
+    rc = libs["flash_fwd"].ray_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), 1, B, L, L, H, Hkv, D, tattn._strides(q, k, v, o),
+        D ** -0.5, int(causal), None)
+    assert rc == 0
+    want_o, want_lse = tattn.flash_attention_plain(q, k, v, causal=causal,
+                                                   return_lse=True)
+    _within(o, want_o, (4e-3 / float(want_o.float().abs().max()), 1.6e-2))
+    assert float((lse - want_lse).abs().max()) <= 1e-4

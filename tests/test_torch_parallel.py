@@ -23,6 +23,14 @@ mesh of the same shape with ``shardings_for_tree`` applied; Ulysses under
 tp=2 x sp=2; ``shard_params`` then ``gather_params`` giving the tree back
 bit for bit; and ``dryrun_rank``.
 
+And the expert-parallel slice, on the meshes ep=4, ep=2 x tp=2 and
+fsdp=2 x ep=2: ``make_ep_moe_ffn``'s output, aux and gradients against
+JAX's on 4 virtual CPU devices, at capacity factor 8.0 (nothing dropped)
+and 0.1 (drops, which must be JAX's), and a small Mixtral's loss share,
+every gathered gradient and one AdamW step against JAX's
+``mixtral.loss_fn(moe_ffn=make_ep_moe_ffn(...))`` under a mesh of the same
+shape with ``mixtral_shardings`` applied and ``optax.adamw``.
+
 JAX is imported inside the tests only: the gloo children import this
 module again, and they must not load JAX.
 """
@@ -37,6 +45,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.models import mixtral as tmix
 from ray_tpu_torch.models.convert import params_from_numpy, trainable
 from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.ops import chunked_xent as tchunked
@@ -46,6 +55,7 @@ from ray_tpu_torch.parallel import (MeshSpec, collectives, make_mesh,
                                     make_ulysses_attention, shard_batch)
 from ray_tpu_torch.parallel import dryrun as tdryrun
 from ray_tpu_torch.parallel import mesh as tmesh
+from ray_tpu_torch.parallel import moe as tmoe
 from ray_tpu_torch.parallel import sharding as tsharding
 from ray_tpu_torch.parallel import training as ttrain
 from ray_tpu_torch.parallel import ulysses as tuly
@@ -76,6 +86,18 @@ TRAFFIC_KEYS = ("allreduce", "allreduce_bytes", "allgather",
                 "allgather_bytes", "send_recv", "send_recv_bytes",
                 "host_staged")
 ADAMW = dict(lr=1e-3, weight_decay=0.1)
+# The expert-parallel meshes; the EP MoE's inputs (B, L, D, d_ff, E, k);
+# its capacity factors: nothing dropped, and drops; a small Mixtral.
+EP_MESHES = {"ep4": dict(ep=4), "ep2tp2": dict(ep=2, tp=2),
+             "fsdp2ep2": dict(fsdp=2, ep=2)}
+MOE_SHAPE = (4, 8, 32, 48, 4, 2)
+EP_FACTORS = (8.0, 0.1)
+# The experts as the EP MoE takes them: over ep, d_ff over tp.
+EP_SPECS = {"w_gate": ("ep", None, "tp"), "w_up": ("ep", None, "tp"),
+            "w_down": ("ep", "tp", None)}
+MCFG = dict(TCFG, n_experts=4, top_k=2)
+# Below this gradient an AdamW step follows the gradient's last digits.
+ADAM_SMALL_GRAD = 1e-6
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -520,6 +542,13 @@ def _child(rank, store, out_dir, inputs):
         _sharded_step(res, "tp2sp2_ulysses", m, inputs,
                       make_ulysses_attention(m))
         _vocab_losses(res, m, inputs["vocab"])
+        for name, sizes in EP_MESHES.items():
+            ep_mesh = make_mesh(MeshSpec(**sizes), device=CPU)
+            for cf in EP_FACTORS:
+                _ep_ffn(res, f"{name}_cf{cf}", ep_mesh, inputs["moe"], cf)
+            _sharded_step(res, f"{name}_mixtral", ep_mesh, inputs, None,
+                          model="mixtral", remat=True,
+                          forward=tmix.sharded_forward)
         res["dryrun_loss"] = np.array(tdryrun.dryrun_rank(WORLD, device=CPU))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     finally:
@@ -592,14 +621,20 @@ def _roundtrip(res, name, mesh, inputs):
         sum(t.numel() for _, t in tsharding.tree_paths(shards)))
 
 
-def _sharded_step(res, name, mesh, inputs, attn, **loss_kw):
-    """A small Llama's shards through sharded_loss_fn, the gradients
-    completed by allreduce_grads, one AdamW step on the shards; the global
-    loss, gradients and updated parameters gathered, and whether each
-    AdamW moment has its shard's shape and its parameter's spec."""
-    cfg = tllama.LlamaConfig(**TCFG, dtype=torch.float32)
-    params = params_from_numpy(inputs["params"], device=CPU)
-    specs = tsharding.shardings_for_tree(params, mesh)
+def _sharded_step(res, name, mesh, inputs, attn, model="llama", **loss_kw):
+    """A small Llama's (or, with ``model="mixtral"``, a small Mixtral's)
+    shards through sharded_loss_fn, the gradients completed by
+    allreduce_grads, one AdamW step on the shards; the global loss,
+    gradients and updated parameters gathered, and whether each AdamW
+    moment has its shard's shape and its parameter's spec."""
+    if model == "mixtral":
+        cfg = tmix.MixtralConfig(**MCFG, dtype=torch.float32)
+        params = params_from_numpy(inputs["mparams"], device=CPU)
+        specs = tmix.mixtral_shardings(params, mesh)
+    else:
+        cfg = tllama.LlamaConfig(**TCFG, dtype=torch.float32)
+        params = params_from_numpy(inputs["params"], device=CPU)
+        specs = tsharding.shardings_for_tree(params, mesh)
     shards = tsharding.shard_params(params, mesh, specs)
     leaves = trainable(shards)
     opt = torch.optim.AdamW(leaves, betas=(0.9, 0.999), eps=1e-8, **ADAMW)
@@ -626,6 +661,45 @@ def _sharded_step(res, name, mesh, inputs, attn, **loss_kw):
         moment_specs[i]["exp_avg"] == moment_specs[i]["exp_avg_sq"]
         == leaf_specs[i] and opt.state[p]["exp_avg"].shape == p.shape
         for i, p in enumerate(leaves)))
+
+
+def _moe_inputs():
+    """The EP MoE's x, output cotangent, router and experts."""
+    B, L, D, F, E, _ = MOE_SHAPE
+    rng = np.random.default_rng(9)
+    return dict(x=_randn(rng, B, L, D), cot=_randn(rng, B, L, D),
+                router=_randn(rng, D, E) * 0.5,
+                w_gate=_randn(rng, E, D, F) * D ** -0.5,
+                w_up=_randn(rng, E, D, F) * D ** -0.5,
+                w_down=_randn(rng, E, F, D) * F ** -0.5)
+
+
+def _ep_ffn(res, tag, mesh, arrays, cf):
+    """make_ep_moe_ffn on this rank's rows and experts: sum(out * cot) +
+    aux backward; the rows and x's gradient gathered over the batch axes,
+    the aux shares summed over them, the router's and experts' gradients
+    completed by allreduce_grads and gathered."""
+    rows = (tmesh.BATCH_AXES,)
+    x = shard_batch(mesh, torch.from_numpy(arrays["x"])).clone() \
+        .requires_grad_()
+    cot = shard_batch(mesh, torch.from_numpy(arrays["cot"]))
+    specs = {"router": (), "experts": EP_SPECS}
+    tree = {"router": torch.from_numpy(arrays["router"]),
+            "experts": {k: torch.from_numpy(arrays[k]) for k in EP_SPECS}}
+    tree = tsharding.shard_params(tree, mesh, specs)
+    trainable(tree)
+    fn = tmoe.make_ep_moe_ffn(mesh, k=MOE_SHAPE[5], capacity_factor=cf)
+    out, aux = fn(x, tree["router"], tree["experts"])
+    ((out * cot).sum() + aux).backward()
+    ttrain.allreduce_grads(tree, mesh, specs)
+    res[f"{tag}_out"] = tsharding._gather(out.detach(), rows, mesh).numpy()
+    res[f"{tag}_dx"] = tsharding._gather(x.grad, rows, mesh).numpy()
+    res[f"{tag}_aux"] = collectives.allreduce(
+        aux.detach(), mesh, ttrain.SPLIT_AXES).numpy()
+    grads = tsharding.gather_params(
+        tsharding._map(lambda _, t: t.grad, tree), mesh, specs)
+    for key, leaf in tsharding.tree_paths(grads):
+        res[f"{tag}_grad.{key}"] = leaf.numpy()
 
 
 def _vocab_inputs():
@@ -671,8 +745,10 @@ def gloo_results(tmp_path_factory):
     """Spawn the group once; each rank's results as a dict."""
     import jax
     from ray_tpu.models import llama as jllama
+    from ray_tpu.models import mixtral as jmix
 
     jcfg = jllama.LlamaConfig(**TCFG, dtype=jax.numpy.float32)
+    mcfg = jmix.MixtralConfig(**MCFG, dtype=jax.numpy.float32)
     inputs = {
         "ring": {case: _ring_inputs(*case) for case in RING_CASES[:2]},
         "ulysses": {kvh: _uly_inputs(kvh) for kvh in ULY_KVH},
@@ -681,6 +757,9 @@ def gloo_results(tmp_path_factory):
         "tokens": _llama_tokens(),
         "shard_tokens": _shard_tokens(),
         "vocab": _vocab_inputs(),
+        "moe": _moe_inputs(),
+        "mparams": jax.tree_util.tree_map(
+            np.asarray, jmix.init_params(mcfg, jax.random.PRNGKey(2))),
     }
     tmp = tmp_path_factory.mktemp("gloo")
     mp.spawn(_child, args=(str(tmp / "store"), str(tmp), inputs),
@@ -840,6 +919,46 @@ def _jax_sharded_step(cpu_mesh8, inputs, spec, attn, chunked):
     return _JAX_REFS[key]
 
 
+def _jax_mixtral_step(cpu_mesh8, inputs, spec):
+    """JAX's loss, gradients and parameters after one optax.adamw step of
+    the small Mixtral through make_ep_moe_ffn (the config's capacity
+    factor) under a mesh of ``spec``'s shape, mixtral_shardings applied
+    and the batch placed by batch_sharding, remat on."""
+    key = ("mixtral", tuple(sorted(spec.items())))
+    if key in _JAX_REFS:
+        return _JAX_REFS[key]
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from ray_tpu.models import mixtral as jmix
+    from ray_tpu.parallel import MeshSpec as JMeshSpec
+    from ray_tpu.parallel import apply_shardings, batch_sharding
+    from ray_tpu.parallel import make_ep_moe_ffn as jep
+    from ray_tpu.parallel import make_mesh as jmake_mesh
+
+    jcfg = jmix.MixtralConfig(**MCFG, dtype=jnp.float32)
+    mesh = jmake_mesh(JMeshSpec(**spec), devices=cpu_mesh8[:WORLD])
+    moe_ffn = jep(mesh, k=jcfg.top_k, capacity_factor=jcfg.capacity_factor)
+    params = jax.tree_util.tree_map(jnp.asarray, inputs["mparams"])
+    params = apply_shardings(params, jmix.mixtral_shardings(params, mesh))
+    tokens = jax.device_put(jnp.asarray(inputs["shard_tokens"]),
+                            batch_sharding(mesh))
+    opt = optax.adamw(ADAMW["lr"], weight_decay=ADAMW["weight_decay"])
+
+    @jax.jit
+    def step(params, tokens):
+        loss, grads = jax.value_and_grad(lambda p: jmix.loss_fn(
+            p, {"tokens": tokens}, jcfg, remat=True, moe_ffn=moe_ffn))(params)
+        updates, _ = opt.update(grads, opt.init(params), params)
+        return loss, grads, optax.apply_updates(params, updates)
+
+    loss, grads, after = step(params, tokens)
+    _JAX_REFS[key] = (float(loss),
+                      {k: np.asarray(v) for k, v in _flat(grads).items()},
+                      {k: np.asarray(v) for k, v in _flat(after).items()})
+    return _JAX_REFS[key]
+
+
 def _rank_tree(res, prefix):
     """A rank's flat leaves saved under ``prefix`` (``/``-joined paths), in
     ``_flat``'s ``.``-joined keys."""
@@ -849,7 +968,7 @@ def _rank_tree(res, prefix):
 
 SHARDED_CASES = [(name, variant) for name in SHARDED
                  for variant in ("", "_remat_chunked")] + \
-    [("tp2sp2", "_ulysses")]
+    [("tp2sp2", "_ulysses")] + [(name, "_mixtral") for name in EP_MESHES]
 
 
 @pytest.mark.parametrize("name,variant", SHARDED_CASES)
@@ -857,19 +976,26 @@ def test_gloo_sharded_step_matches_jax(gloo_results, cpu_mesh8, name,
                                        variant):
     """FSDP/TP: a small Llama's shards on each mesh, the ring (flash block
     step) or Ulysses as its attention, dense or with remat and the chunked
-    loss: every rank's global loss, every gathered gradient and every
+    loss; and EP (``_mixtral``): a small Mixtral's shards on each
+    expert-parallel mesh, its MoE through make_ep_moe_ffn, remat on:
+    every rank's global loss, every gathered gradient and every
     gathered parameter after one AdamW step against JAX's under a mesh of
     the same shape; the global gradient norm from the shards is the norm
     of JAX's gradients; AdamW's moments carry their shard's shape and
     their parameter's spec."""
     inputs, results = gloo_results
     tag = name + variant
-    want_loss, want_grads, want_params = _jax_sharded_step(
-        cpu_mesh8, inputs, SHARDED[name],
-        "ulysses" if variant == "_ulysses" else "ring",
-        CHUNK if variant == "_remat_chunked" else 0)
+    if variant == "_mixtral":
+        want_loss, want_grads, want_params = _jax_mixtral_step(
+            cpu_mesh8, inputs, EP_MESHES[name])
+    else:
+        want_loss, want_grads, want_params = _jax_sharded_step(
+            cpu_mesh8, inputs, SHARDED[name],
+            "ulysses" if variant == "_ulysses" else "ring",
+            CHUNK if variant == "_remat_chunked" else 0)
     want_norm = np.sqrt(sum(np.square(g.astype(np.float64)).sum()
                             for g in want_grads.values()))
+    start = {k: np.asarray(v) for k, v in _flat(inputs["mparams"]).items()}
     for r, res in enumerate(results):
         np.testing.assert_allclose(res[f"{tag}_loss"], want_loss,
                                    **VALUE_TOL, err_msg=f"rank {r}")
@@ -880,9 +1006,34 @@ def test_gloo_sharded_step_matches_jax(gloo_results, cpu_mesh8, name,
                                 ("param", want_params, VALUE_TOL)):
             got = _rank_tree(res, f"{tag}_{what}.")
             assert got.keys() == want.keys()
+            if what == "grad":
+                grads = got
             for key, w in want.items():
+                if what == "param" and variant == "_mixtral":
+                    _hold_adamw_step(got[key], w, want_grads[key],
+                                     start[key], grads[key],
+                                     f"rank {r} {key}")
+                    continue
                 np.testing.assert_allclose(got[key], w, **tol,
                                            err_msg=f"rank {r} {what} {key}")
+
+
+def _hold_adamw_step(got, want, grad, start, port_grad, what):
+    """One AdamW step's parameters, elementwise: at VALUE_TOL to JAX's where
+    JAX's gradient is at least ADAM_SMALL_GRAD, and everywhere at VALUE_TOL
+    to the step from the port's own gathered gradient g (already held to
+    JAX's at GRAD_TOL), start * (1 - lr wd) - lr g / (|g| + eps). Adam's
+    first step moves an element by lr * g / (|g| + eps): for |g| near
+    eps = 1e-8 that follows g's last digits, which GRAD_TOL leaves free
+    (the small Mixtral's expert gradients reach 1e-9), so below
+    ADAM_SMALL_GRAD only the port's own step can be held."""
+    big = np.abs(grad) >= ADAM_SMALL_GRAD
+    np.testing.assert_allclose(got[big], want[big], **VALUE_TOL,
+                               err_msg=what)
+    g = port_grad.astype(np.float64)
+    step = start * (1 - ADAMW["lr"] * ADAMW["weight_decay"]) \
+        - ADAMW["lr"] * g / (np.abs(g) + 1e-8)
+    np.testing.assert_allclose(got, step, **VALUE_TOL, err_msg=what)
 
 
 @pytest.mark.parametrize("name", SHARDED)
@@ -955,3 +1106,42 @@ def test_gloo_vocab_split_losses_match_jax(gloo_results):
         np.testing.assert_allclose(res["vocab_chunked_dhead"],
                                    np.asarray(dw)[:, cols], **GRAD_TOL,
                                    err_msg=f"rank {r}")
+
+
+@pytest.mark.parametrize("cf", EP_FACTORS)
+@pytest.mark.parametrize("name", EP_MESHES)
+def test_gloo_ep_moe_ffn_matches_jax(gloo_results, cpu_mesh8, name, cf):
+    """make_ep_moe_ffn over the group against JAX's on a mesh of the same
+    shape: the output rows, the aux (the ranks' shares summed over the
+    batch axes is JAX's mean over the token shards), and the gradients of
+    sum(out * cot) + aux for x, the router and every expert. At capacity
+    factor 0.1 a rank sends at most 2 of its tokens to an expert: the drops must
+    be JAX's, or the rows differ by whole tokens."""
+    import jax
+    import jax.numpy as jnp
+    from ray_tpu.parallel import MeshSpec as JMeshSpec
+    from ray_tpu.parallel import make_ep_moe_ffn as jep
+    from ray_tpu.parallel import make_mesh as jmake_mesh
+
+    inputs, results = gloo_results
+    a = {k: jnp.asarray(v) for k, v in inputs["moe"].items()}
+    mesh = jmake_mesh(JMeshSpec(**EP_MESHES[name]), devices=cpu_mesh8[:WORLD])
+    fn = jep(mesh, k=MOE_SHAPE[5], capacity_factor=cf)
+
+    def loss(x, router, experts):
+        out, aux = fn(x, router, experts)
+        return (out * a["cot"]).sum() + aux, (out, aux)
+
+    (_, (out, aux)), (dx, drouter, dexperts) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True))(
+            a["x"], a["router"], {k: a[k] for k in EP_SPECS})
+    if cf < 1:  # some tokens are dropped: their rows are zero
+        assert (np.abs(np.asarray(out)).sum(-1) == 0).any()
+    tag = f"{name}_cf{cf}"
+    want = {"out": out, "dx": dx, "aux": aux, "grad.router": drouter,
+            **{f"grad.experts/{k}": v for k, v in dexperts.items()}}
+    for r, res in enumerate(results):
+        for key, w in want.items():
+            tol = VALUE_TOL if key in ("out", "aux") else GRAD_TOL
+            np.testing.assert_allclose(res[f"{tag}_{key}"], np.asarray(w),
+                                       **tol, err_msg=f"rank {r} {key}")

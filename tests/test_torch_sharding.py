@@ -2,8 +2,10 @@
 with the JAX package's, on the CPU and on abstract shapes: the rule table,
 ``spec_for``, ``clean_spec``, the tree paths and ``shardings_for_tree`` on
 ``LLAMA3_1B`` (``meta`` tensors, so no 1B tree is built) and on a small
-config whose dims some axes do not divide. The port's spec is a tuple with
-the entries of JAX's ``PartitionSpec``; both are compared as tuples.
+config whose dims some axes do not divide; ``mixtral_shardings`` and
+``expert_shardings`` on a small Mixtral over meshes with an ``ep`` axis;
+``VIT_RULES`` on ViT-B/16's tree. The port's spec is a tuple with the
+entries of JAX's ``PartitionSpec``; both are compared as tuples.
 
 The shards themselves (``shard_params``, ``gather_params``, the sharded
 step against JAX) run in the one gloo group of
@@ -161,3 +163,79 @@ def test_one_device_mesh_keeps_the_tree_whole():
     specs = tsharding.shardings_for_tree(params, mesh)
     assert tsharding.shard_params(params, mesh, specs) is params
     assert tsharding.gather_params(params, mesh, specs) is params
+
+
+# MoE meshes over 8 devices, every one with an ep axis.
+EP_MESHES = {
+    "ep2_tp2_fsdp2": dict(ep=2, tp=2, fsdp=2),
+    "ep8": dict(ep=8),
+    "ep4_tp2": dict(ep=4, tp=2),
+    "dp2_ep4": dict(dp=2, ep=4),
+}
+# E = 4 experts: ep = 8 divides no expert dim, and d_ff 70 no tp.
+MOE = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
+           d_ff=70, max_seq_len=64, n_experts=4, top_k=2)
+
+
+def _mixtral_trees():
+    from ray_tpu.models import mixtral as jmix
+    from ray_tpu_torch.models import mixtral as tmix
+
+    jcfg = jmix.MixtralConfig(**MOE, dtype=jnp.float32)
+    tcfg = tmix.MixtralConfig(**MOE, dtype=torch.float32)
+    jtree = jax.eval_shape(lambda: jmix.init_params(jcfg,
+                                                    jax.random.PRNGKey(0)))
+    ttree = tmix.init_params(tcfg, torch.Generator().manual_seed(0),
+                             device="meta")
+    return jmix, tmix, jtree, ttree
+
+
+def _jax_specs(jtree, jspecs):
+    return {p: tuple(s.spec) for p, s in zip(
+        jax.tree_util.tree_leaves(jsharding._tree_paths(jtree)),
+        jax.tree_util.tree_leaves(jspecs))}
+
+
+@pytest.mark.parametrize("mesh", EP_MESHES)
+def test_mixtral_and_expert_shardings_match_jax(cpu_mesh8, mesh):
+    """mixtral_shardings (LLAMA_RULES, then expert_shardings for each
+    layer's experts) and expert_shardings alone, leaf by leaf, on abstract
+    shapes: the experts over ep (where it divides E), d_ff over tp (where
+    it divides), d_model over fsdp; the router replicated."""
+    from ray_tpu.parallel import moe as jmoe
+    from ray_tpu_torch.parallel import moe as tmoe
+
+    jmix, tmix, jtree, ttree = _mixtral_trees()
+    jmesh = _jmesh(cpu_mesh8, EP_MESHES[mesh])
+    tmesh = make_mesh(MeshSpec(**EP_MESHES[mesh]), device="cpu")
+    want = _jax_specs(jtree, jmix.mixtral_shardings(jtree, jmesh))
+    got = dict(tsharding.tree_paths(tmix.mixtral_shardings(ttree, tmesh)))
+    assert got == want
+    assert got["layers/0/router"] == ()
+    jexp = jmoe.expert_shardings(jtree["layers"][1]["experts"], jmesh)
+    assert tmoe.expert_shardings(ttree["layers"][1]["experts"], tmesh) == \
+        {k: tuple(s.spec) for k, s in jexp.items()}
+
+
+def test_vit_rule_table_matches_jax():
+    assert [(p, s) for p, s in tsharding.VIT_RULES] == \
+        [(p, tuple(s)) for p, s in jsharding.VIT_RULES]
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_vit_shardings_for_tree_match_jax(cpu_mesh8, mesh):
+    """shardings_for_tree under VIT_RULES on ViT-B/16's abstract tree
+    (1000 classes, which tp = 8 does not divide)."""
+    from ray_tpu.models import vit as jvit
+    from ray_tpu_torch.models import vit as tvit
+
+    jtree = jax.eval_shape(lambda: jvit.init_params(jvit.ViTConfig(),
+                                                    jax.random.PRNGKey(0)))
+    jspecs = jsharding.shardings_for_tree(
+        jtree, _jmesh(cpu_mesh8, MESHES[mesh]), jsharding.VIT_RULES)
+    ttree = tvit.init_params(tvit.ViTConfig(),
+                             torch.Generator().manual_seed(0), device="meta")
+    got = dict(tsharding.tree_paths(tsharding.shardings_for_tree(
+        ttree, make_mesh(MeshSpec(**MESHES[mesh]), device="cpu"),
+        tsharding.VIT_RULES)))
+    assert got == _jax_specs(jtree, jspecs)
