@@ -53,7 +53,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
      (a yardstick only) by events and its device time, and the bounds; two
      backward calls on the same inputs must give the same bits; also at
      the calls a rank of phase 12 makes ([2, 2048, 16/4, 64] at fsdp = 2 x
-     tp = 2, [1, 2048, 32/8, 64] at fsdp = 4). At the training shape also
+     tp = 2, [1, 2048, 32/8, 64] at fsdp = 4), and at each microbatch's
+     call of phases 16 and 12 (f)/(g) (pipeline_bwd_shapes: [2, 2048,
+     32/8, 64] and [1, 2048, 16/4, 64]). At the training shape also
      the forward with lse, timed and profiled beside sdpa's;
   7. a small fp32 model trained on the card: the loss and every gradient
      through the kernels against the plain path on the CPU, dense and with
@@ -111,7 +113,18 @@ Phases, each of which raises on failure (the exit code is then not 0):
      first loss and its CE part within 1e-2 and first gradient norm
      within 1% of phase 14's, launches at its rate, 12 all-to-alls of an
      fp32 [E, C, D] buffer a rank and step; and in (c) a small fp32
-     Mixtral on ep = 2 x tp = 2 and fsdp = 2 x ep = 2 against the CPU;
+     Mixtral on ep = 2 x tp = 2 and fsdp = 2 x ep = 2 against the CPU.
+     The pipeline over pp (make_pipelined_loss, GPipe, remat): (f) pp = 2
+     x tp = 2 with 4 microbatches and (g) pp = 2 x fsdp = 2 with 2,
+     LLAMA3_1B at full width and depth from phase 8's weights and tokens,
+     1 + 2 steps, held to phase 8's dense run as phase 16 holds it, each
+     rank's launches at the schedule's count, its hops (2 (M + S) - 3 a
+     step) and FSDP gathers (once a step) counted in bytes; a planted
+     fault in each (the embedding's gradient left unsummed over pp; the
+     outputs' cotangent summed over pp) must break the group rule; in (c)
+     a 4-layer small fp32 Llama on pp = 4 (M = 4) and pp = 2 x tp = 2 (M =
+     2) against the CPU; and (d) also runs the dryrun's pipeline (pp = 2 x
+     tp = 2) and MoE (ep = 2 x tp = 2) parts;
  13. Mixtral serving: Mixtral-8x7B's widths at 16 of its 32 layers (all
      32 do not fit the card), random weights, mixtral_generate_greedy on
      prompts of 40, 200 and 1024 tokens, 32 new tokens each (K1 launches
@@ -133,11 +146,21 @@ Phases, each of which raises on failure (the exit code is then not 0):
      step), the first loss and each leaf's gradient norm held to the
      same step through dense_attention by VIT_RTOL and VIT_LEAF_RTOL, a
      planted key-mask fault refused; the forward under no_grad (K1,
-     12 launches); a small fp32 ViT against the CPU.
+     12 launches); a small fp32 ViT against the CPU;
+ 16. the pipeline's main path: LLAMA3_1B at full width and depth, phase
+     8's weights and tokens, its layers pipelined over a one-device pp =
+     4 mesh (the 4 stages in lockstep on this card, 4 layers each) by
+     make_pipelined_loss (remat), M = 4 and M = 2, 1 + 2 AdamW steps
+     each: K2's launches at the schedule's count (every stage on every
+     one of the M + S - 1 ticks, forward, recompute and backward), the
+     first loss and whole gradient norm within 1e-2 of phase 8's dense
+     run and each group's norm (embedding, final norm, head, each stage's
+     layers) within GROUP_RTOL; ms per step beside phase 8's, the
+     bubble's share, peak memory.
 Phases 2 and 6 also hold the kernels at ViT's call (128, 197, 12/12, 64,
 non-causal), phase 2 at each of phase 13's prefills (1, L, 32/8, 128)
 and phase 6 at an ep rank's (1, 2048, 32/8, 128). Phases run
-in the order 1-5, 13, 6-11, 14, 12, 15.
+in the order 1-5, 13, 6-8, 16, 9-11, 14, 12, 15.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -254,6 +277,12 @@ def hold_grad(got, want, rule, what):
     return hold(got, want, a * float(want.float().abs().max()), r, what)
 
 
+# A profiler window's lead-in on the device: torch.cuda._sleep's spin
+# kernel, about 10 ms at the H100's clock, before the recorded calls.
+LEAD_IN_CYCLES = 20_000_000
+LEAD_IN_KERNEL = "spin_kernel"
+
+
 def device_profile(fn, reps: int):
     """Run ``fn`` ``reps`` times under torch.profiler; returns the device
     time per rep in ms and the kernels as (ms per rep, calls per rep, name),
@@ -265,9 +294,11 @@ def device_profile(fn, reps: int):
 
     # The trace has been seen to start late: a window lost the kernels
     # that ran in its first millisecond or so (all of a first backward call
-    # but its last kernel; every kernel of five di reductions). So one
-    # warm-up call is traced and dropped, and the recorded reps start
-    # 50 ms of idle host time after the record step begins.
+    # but its last kernel; every kernel of five di reductions; on one
+    # machine the first call's di and dK/dV in three windows running). So
+    # one warm-up call is traced and dropped, the recorded reps start 50 ms
+    # of idle host time after the record step begins, and behind a spin
+    # kernel of LEAD_IN_CYCLES on the device, which is left out below.
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
@@ -275,6 +306,7 @@ def device_profile(fn, reps: int):
         torch.cuda.synchronize()
         prof.step()
         time.sleep(0.05)
+        torch.cuda._sleep(LEAD_IN_CYCLES)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -283,7 +315,8 @@ def device_profile(fn, reps: int):
                        e.count / reps, e.key)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA
-                      and not getattr(e, "is_user_annotation", False)),
+                      and not getattr(e, "is_user_annotation", False)
+                      and LEAD_IN_KERNEL not in e.key),
                      reverse=True)
     return sum(k[0] for k in kernels), kernels
 
@@ -1197,6 +1230,26 @@ BWD_SHAPES = [  # (B, L, H, Hkv, D, causal): why
     (128, 197, 12, 12, 64, False),  # ViT-B/16: ragged, full mask, H = Hkv
     (1, 2048, 32, 8, 128, True),   # Mixtral's call at an ep = 4 rank
 ]
+# Phase 8's tokens, whose rows phases 11, 12 and 16 split.
+TRAIN_TOKENS = (4, 2048)
+
+
+def pipeline_bwd_shapes():
+    """K2's calls in phases 16 and 12 (f)/(g): a microbatch's rows of
+    TRAIN_TOKENS (split over the batch axes, then into M), LLAMA3_1B's
+    32/8 heads of 64 split over tp; the rows BWD_SHAPES lacks."""
+    runs = [(dict(pp=LOCKSTEP_PP), m) for m in LOCKSTEP_RUNS.values()]
+    runs += [(sizes, micro) for sizes, *_, micro in SHARDED_RUNS.values()
+             if micro]
+    out = []
+    for sizes, m in runs:
+        rows = TRAIN_TOKENS[0] // math.prod(
+            sizes.get(a, 1) for a in ("dp", "fsdp", "ep")) // m
+        tp = sizes.get("tp", 1)
+        shape = (rows, TRAIN_TOKENS[1], 32 // tp, 8 // tp, 64, True)
+        if shape not in BWD_SHAPES + out:
+            out.append(shape)
+    return out
 
 
 def check_bwd(attention, gen):
@@ -1207,7 +1260,7 @@ def check_bwd(attention, gen):
     import torch.nn.functional as F
 
     rows = []
-    for B, L, H, Hkv, D, causal in BWD_SHAPES:
+    for B, L, H, Hkv, D, causal in BWD_SHAPES + pipeline_bwd_shapes():
         q = torch.randn(B, L, H, D, generator=gen, device="cuda").bfloat16()
         k = torch.randn(B, L, Hkv, D, generator=gen, device="cuda").bfloat16()
         v = torch.randn(B, L, Hkv, D, generator=gen, device="cuda").bfloat16()
@@ -1715,7 +1768,8 @@ COUNTERS = ("launches", "bwd_launches", "stats_launches")
 
 def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
               chunked, expect, name, attn_impl=None, profile=True,
-              model=None, batch=None, loss_kw=None, throughput=None):
+              model=None, batch=None, loss_kw=None, throughput=None,
+              groups=None):
     """One run of a training main path from weights drawn from ``seed``:
     ``warm`` + ``timed`` AdamW steps on the same tokens through
     ``attn_impl`` (``flash_attention`` unless given), with every launch
@@ -1724,10 +1778,11 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
     ``model`` is the family (``models``, a Llama, unless given:
     ``models.mixtral``, ``models.vit``), ``batch`` its loss's batch
     ({"tokens": tokens} unless given), ``loss_kw`` more arguments of its
-    ``loss_fn`` (``remat=None`` passes none) and ``throughput`` the items a
+    ``loss_fn`` (``remat=None`` passes none), ``throughput`` the items a
     step trains, their name and FLOPs per item (the tokens and
-    ``flops_per_token`` unless given). The weights and optimizer are freed
-    on return."""
+    ``flops_per_token`` unless given), and ``groups(params)`` the first
+    step's squared gradient norms by group (``llama_group_sq``), kept
+    where given. The weights and optimizer are freed on return."""
     model = model or models
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init_params(cfg, gen, device="cuda")
@@ -1745,6 +1800,7 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
         throughput = (B * L, f"tokens [{B}, {L}]",
                       models.flops_per_token(cfg, L))
     norms = []  # the first step's squared gradient norm of each leaf
+    group_sq = []
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -1753,6 +1809,8 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
         if not norms:
             norms.append(torch.stack([t.grad.float().square().sum()
                                       for t in leaves]))
+            if groups is not None:
+                group_sq.append(groups(params))
         opt.step()
         return loss.detach()
 
@@ -1790,6 +1848,8 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
                mfu=mfu, peak_gib=peak / 2**30,
                grad_norm=float(norms[0].sum().sqrt()),
                leaf_norms=norms[0].sqrt().tolist(), **counts)
+    if group_sq:
+        out["group_sq"] = group_sq[0]
     if profile:
         busy_ms, kernels = device_profile(step, 1)
         log(f"train profile {name}: the device ran {busy_ms} ms in one "
@@ -1989,11 +2049,268 @@ def train_vit(models, attention):
     return flash, forward_launches["launches"], fwd_ms
 
 
+# Phases 16 and 12 (f)/(g): LLAMA3_1B's layers pipelined over pp (JAX's
+# GPipe schedule, make_pipelined_loss: remat on, the dense loss), held to
+# phase 8's dense run. Phase 16 runs pp = 4 on one device, its stages in
+# lockstep: name -> microbatches.
+LOCKSTEP_PP = 4
+LOCKSTEP_RUNS = {"pp=4 lockstep, M=4": 4, "pp=4 lockstep, M=2": 2}
+# Each group of leaves' first gradient norm (the embedding, the final norm,
+# the head, and each stage's layers) is held to phase 8's within
+# GROUP_RTOL: a fault in the pp sums moves one group (the embedding's
+# gradient left unsummed over pp reads 1/sqrt(pp) of it, a cotangent
+# summed pp times pp times each layer's) while the whole norm can hide it.
+# Read on an H100 80GB HBM3 (700 W): the sound runs' worst gap 3.2e-4
+# (the final norm's at pp = 2 x tp = 2, whose sums over tp run in another
+# order), the planted faults' 0.293 and 1.000.
+GROUP_RTOL = 5e-3
+# The faults planted in phase 12's pipeline, each one step on a mesh of
+# SHARDED_RUNS, that the group rule must refuse: fault -> run.
+PLANTED = {"embedding unsummed over pp": "(f) pp=2 x tp=2, M=4, remat",
+           "exit cotangent summed over pp": "(g) pp=2 x fsdp=2, M=2, remat"}
+
+
+class Pipelined:
+    """Llama as ``train_run`` takes a model, its layers pipelined over the
+    ``pp`` stages of ``mesh`` in ``microbatches``: ``init_params`` gives
+    the pipelined tree of the same weights, ``loss_fn`` is
+    ``make_pipelined_loss``'s."""
+
+    def __init__(self, models, parallel, mesh, microbatches):
+        self.models, self.parallel = models, parallel
+        self.mesh, self.microbatches = mesh, microbatches
+
+    def init_params(self, cfg, gen, device):
+        return self.parallel.to_pipeline_params(
+            self.models.init_params(cfg, gen, device=device))
+
+    def loss_fn(self, params, batch, cfg, attn_impl=None, remat=True):
+        return self.parallel.make_pipelined_loss(
+            self.mesh, cfg, self.microbatches, remat=remat,
+            attn_impl=attn_impl)(params, batch["tokens"])
+
+
+def bubble(pp: int, microbatches: int) -> float:
+    """The bubble's share of the ticks, (S - 1) / (M + S - 1)."""
+    return (pp - 1) / (microbatches + pp - 1)
+
+
+def pipelined_expect(n_layers: int, pp: int, microbatches: int,
+                     steps: int, lockstep: bool) -> dict:
+    """K2's launches in ``steps`` remat steps of the pipeline by a rank (or
+    by the one process that runs every stage in lockstep): on each of the
+    M + S - 1 ticks every stage runs its layers forward, again in remat's
+    recompute, and backward."""
+    ticks = microbatches + pp - 1
+    layers = n_layers if lockstep else n_layers // pp
+    return {"launches": 2 * ticks * layers * steps,
+            "bwd_launches": ticks * layers * steps}
+
+
+def llama_group_sq(params) -> dict:
+    """The squared gradient norms of a Llama tree's groups of leaves, plain
+    or pipelined: ``embedding``, ``norm``, ``lm_head``, and ``layers`` (one
+    for each layer)."""
+    def sq(t):
+        return float(t.grad.float().square().sum())
+
+    out = {k: sq(params[k]) for k in ("embedding", "norm", "lm_head")}
+    if "layers" in params:
+        out["layers"] = [sum(sq(t) for t in layer.values())
+                         for layer in params["layers"]]
+    else:
+        stacked = list(params["stacked"].values())
+        out["layers"] = [float(sum(t.grad[i].float().square().sum()
+                                   for t in stacked))
+                         for i in range(stacked[0].shape[0])]
+    return out
+
+
+def sharded_group_sq(parallel, shards, mesh, specs, cfg) -> dict:
+    """``llama_group_sq`` over a process-group mesh from each rank's
+    pipelined shards (after ``allreduce_grads``): a leaf's sum of squares
+    over the count of ranks that hold the same shard, each stacked layer
+    at its global index, summed over the mesh."""
+    from ray_tpu_torch.parallel import collectives, mesh as pmesh, sharding
+
+    spec_of = dict(sharding.tree_paths(specs))
+
+    def part(path, t):
+        split = sharding.spec_axes(spec_of[path])
+        copies = math.prod(n for a, n in mesh.shape.items()
+                           if a not in split)
+        return t.grad.float().square() / copies
+
+    vec = torch.zeros(3 + cfg.n_layers, device=mesh.device)
+    for i, k in enumerate(("embedding", "norm", "lm_head")):
+        vec[i] = part(k, shards[k]).sum()
+    n = cfg.n_layers // mesh.shape["pp"]
+    first = 3 + mesh.coords["pp"] * n
+    for path, t in sharding.tree_paths(shards["stacked"], "stacked"):
+        vec[first:first + n] += part(path, t).flatten(1).sum(1)
+    vec = collectives.allreduce(vec, mesh, pmesh.AXES).tolist()
+    return dict(embedding=vec[0], norm=vec[1], lm_head=vec[2],
+                layers=vec[3:])
+
+
+def stage_norms(group_sq: dict, pp: int) -> dict:
+    """Group norms from ``llama_group_sq``'s squares, the layers summed by
+    the stage that holds them at ``pp`` stages."""
+    out = {k: math.sqrt(group_sq[k]) for k in ("embedding", "norm",
+                                               "lm_head")}
+    layers = group_sq["layers"]
+    n = len(layers) // pp
+    for s in range(pp):
+        out[f"layers {s * n}-{(s + 1) * n - 1}"] = math.sqrt(
+            sum(layers[s * n:(s + 1) * n]))
+    return out
+
+
+def group_gaps(got_sq: dict, want_sq: dict, pp: int) -> dict:
+    """Each group's relative gap from the reference's, at ``pp`` stages."""
+    got, want = stage_norms(got_sq, pp), stage_norms(want_sq, pp)
+    return {k: abs(got[k] - want[k]) / want[k] for k in want}
+
+
+def planted_fault(fault: str):
+    """A context in which the pipeline makes ``fault``: the embedding's
+    gradient left unsummed over pp (the entry's f the identity), or the
+    outputs' cotangent summed over pp where they leave (the exit's g summed
+    in the backward too)."""
+    import contextlib
+    from unittest import mock
+
+    from ray_tpu_torch.parallel import collectives, pipeline
+
+    if fault == "embedding unsummed over pp":
+        return mock.patch.object(pipeline, "allreduce_bwd",
+                                 lambda x, mesh, axis: x)
+    if fault == "exit cotangent summed over pp":
+        return mock.patch.object(
+            pipeline, "allreduce_fwd", lambda x, mesh, axis:
+            collectives.allreduce_bwd(collectives.allreduce_fwd(
+                x, mesh, axis), mesh, axis))
+    return contextlib.nullcontext()
+
+
+def pipelined_fault(models, parallel, cfg, tokens, sizes, microbatches,
+                    fault):
+    """One step's gradients of phase 8's weights pipelined on ``sizes``
+    with ``fault`` planted: the first loss and the group norms' squares."""
+    from ray_tpu_torch.parallel import collectives, training
+
+    mesh = parallel.make_mesh(parallel.MeshSpec(**sizes), device="cuda",
+                              backend="gloo")
+    params = parallel.to_pipeline_params(models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(7), device="cuda"))
+    specs = parallel.pipelined_specs(params, mesh)
+    shards = parallel.shard_params(params, mesh, specs)
+    del params
+    models.trainable(shards)
+    with planted_fault(fault):
+        share = parallel.make_pipelined_loss(mesh, cfg, microbatches)(
+            shards, tokens, specs)
+        share.backward()
+    parallel.allreduce_grads(shards, mesh, specs)
+    out = dict(loss=float(collectives.allreduce(share.detach(), mesh,
+                                                training.SPLIT_AXES)),
+               group_sq=sharded_group_sq(parallel, shards, mesh, specs,
+                                         cfg))
+    del shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_phase(models, parallel, attention, cfg, tokens, dense):
+    """Phase 16: LOCKSTEP_RUNS, 1 + 2 AdamW steps each of phase 8's
+    weights (seed 7) and tokens, pipelined over a one-device pp = 4 mesh
+    (the 4 stages in lockstep, 4 layers each) through flash_attention (K2)
+    with remat; launches at the schedule's count, the first loss and the
+    whole gradient norm within 1e-2 and each group's norm within
+    GROUP_RTOL of phase 8's dense run (``dense``)."""
+    mesh = parallel.make_mesh(parallel.MeshSpec(pp=LOCKSTEP_PP),
+                              device="cuda")
+    out = {}
+    for name, m in LOCKSTEP_RUNS.items():
+        run = train_run(
+            models, attention, cfg, tokens, seed=7, warm=1, timed=2,
+            remat=True, chunked=0,
+            expect=pipelined_expect(cfg.n_layers, LOCKSTEP_PP, m, 3,
+                                    lockstep=True),
+            name=f"LLAMA3_1B {name}", model=Pipelined(models, parallel,
+                                                     mesh, m),
+            groups=llama_group_sq)
+        hold_pipelined(name, run["losses"][0], run["grad_norm"],
+                       run["group_sq"], dense, LOCKSTEP_PP)
+        run["bubble"] = bubble(LOCKSTEP_PP, m)
+        run["step_vs_dense"] = run["step_ms"] / dense["step_ms"]
+        log(f"phase 16 {name}: {run['step_ms']} ms/step (phase 8's dense "
+            f"step {dense['step_ms']}: {run['step_vs_dense']}x; the layers' "
+            f"work (M + S - 1) / M = {(m + LOCKSTEP_PP - 1) / m}x plus "
+            f"remat's recompute), bubble {run['bubble']}, peak "
+            f"{run['peak_gib']} GiB")
+        out[name] = run
+    return out
+
+
+def hold_pipeline_traffic(name, sizes, microbatches, tokens, d_model, got):
+    """A pipelined rank's traffic a step: 2 (M + S) - 3 hops (M + S - 1
+    forward; the hop back of each but the last tick's) of a bf16
+    microbatch's activations, and each FSDP-split leaf gathered and
+    reduce-scattered once, whatever the count of ticks."""
+    pp = sizes["pp"]
+    rows = tokens.shape[0] // math.prod(sizes.get(a, 1)
+                                        for a in ("dp", "fsdp", "ep"))
+    hops = 2 * (microbatches + pp) - 3
+    hop_bytes = rows // microbatches * tokens.shape[1] * d_model * 2
+    for r, g in enumerate(got):
+        t = g["traffic_per_step"]
+        want = {"send_recv": hops, "send_recv_bytes": hops * hop_bytes,
+                "allgather": g["fsdp_leaves"],
+                "allgather_bytes": g["fsdp_bytes"],
+                "reducescatter": g["fsdp_leaves"]}
+        seen = {k: t.get(k, 0) for k in want}
+        if seen != want:
+            raise AssertionError(f"{name} rank {r}: traffic a step {seen}, "
+                                 f"expected {want}")
+    log(f"phase 12 {name}: a step moves {hops} hops of {hop_bytes} bytes "
+        f"and gathers {got[0]['fsdp_leaves']} FSDP leaves once "
+        f"({got[0]['fsdp_bytes']} bytes a rank); bubble "
+        f"{bubble(pp, microbatches)}")
+
+
+def hold_pipelined(name, first, norm, group_sq, dense, pp):
+    """A pipelined run's first loss and whole gradient norm within 1e-2 of
+    phase 8's dense run, and each group's norm within GROUP_RTOL."""
+    ref = dense["losses"][0]
+    if not abs(first - ref) <= 1e-2 * abs(ref):
+        raise AssertionError(f"{name}: first loss {first}, phase 8's {ref}")
+    if not abs(norm - dense["grad_norm"]) <= 1e-2 * dense["grad_norm"]:
+        raise AssertionError(f"{name}: first gradient norm {norm}, phase "
+                             f"8's {dense['grad_norm']}")
+    gaps = group_gaps(group_sq, dense["group_sq"], pp)
+    worst = max(gaps, key=gaps.get)
+    log(f"{name}: first loss {first} (phase 8's {ref}), gradient norm "
+        f"{norm} (ratio {norm / dense['grad_norm']}); group norms' gaps "
+        f"from phase 8's {json.dumps(gaps)}, worst {worst} {gaps[worst]} "
+        f"(limit {GROUP_RTOL})")
+    if not gaps[worst] <= GROUP_RTOL:
+        raise AssertionError(f"{name}: group {worst}'s gradient norm "
+                             f"{gaps[worst]} from phase 8's")
+    return gaps
+
+
 # Phase 12: sharded training, 4 ranks on the one card. LLAMA3_1B's runs:
-# name -> (mesh sizes, remat, chunked vocab, phase 8's run of that recipe).
+# name -> (mesh sizes, remat, chunked vocab, phase 8's run of that recipe,
+# pipeline microbatches or None). (f) and (g) pipeline the layers over pp
+# (make_pipelined_loss: remat, the dense loss), held to phase 8's dense run.
 SHARDED_RUNS = {
-    "fsdp=2 x tp=2, dense": (dict(fsdp=2, tp=2), False, 0, "dense"),
-    "fsdp=4, remat + chunked": (dict(fsdp=4), True, 16384, "remat"),
+    "fsdp=2 x tp=2, dense": (dict(fsdp=2, tp=2), False, 0, "dense", None),
+    "fsdp=4, remat + chunked": (dict(fsdp=4), True, 16384, "remat", None),
+    "(f) pp=2 x tp=2, M=4, remat": (dict(pp=2, tp=2), True, 0, "dense", 4),
+    "(g) pp=2 x fsdp=2, M=2, remat": (dict(pp=2, fsdp=2), True, 0, "dense",
+                                      2),
 }
 # (e): phase 14's Mixtral on ep = 4, capacity factor E / k, so that a rank
 # may send all its tokens to one expert and none is dropped.
@@ -2001,33 +2318,52 @@ EP_RUN = "ep=4, Mixtral 2 layers, remat"
 SHARDED_STEPS = (1, 2)  # warm-up, timed
 # The small fp32 models: head dim 64, so tp = 2 leaves each rank 2/1 heads
 # for the kernels. name -> (mesh sizes, attention, remat, chunked vocab,
-# MoE); the Mixtral's through make_ep_moe_ffn at its capacity factor 2.0
-# (= E / k: nothing dropped), remat on (JAX's default).
+# MoE, pipeline microbatches or None); the Mixtral's through
+# make_ep_moe_ffn at its capacity factor 2.0 (= E / k: nothing dropped),
+# remat on (JAX's default); the pipelined Llama's SMALL_PIPE_LAYERS layers
+# through make_pipelined_loss on SMALL_PIPE_TOKENS.
 SMALL_CFG = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
                  n_kv_heads=2, d_ff=512)
 SMALL_TOKENS = (2, 128)
 SMALL_MOE_TOKENS = (4, 64)  # a row a token shard at fsdp = 2 x ep = 2
+SMALL_PIPE_LAYERS = 4       # a layer a stage at pp = 4
+SMALL_PIPE_TOKENS = (4, 128)  # a row a microbatch at M = 4
 SHARDED_SMALL_RUNS = {
     "tp=2 x sp=2, sp ring (flash)": (dict(tp=2, sp=2), "ring", False, 0,
-                                     False),
+                                     False, None),
     "fsdp=2 x tp=2, flash_attention, remat + chunked":
-        (dict(fsdp=2, tp=2), None, True, 128, False),
-    "ep=2 x tp=2, Mixtral, remat": (dict(ep=2, tp=2), None, True, 0, True),
+        (dict(fsdp=2, tp=2), None, True, 128, False, None),
+    "ep=2 x tp=2, Mixtral, remat": (dict(ep=2, tp=2), None, True, 0, True,
+                                    None),
     "fsdp=2 x ep=2, Mixtral, remat": (dict(fsdp=2, ep=2), None, True, 0,
-                                      True),
+                                      True, None),
+    "pp=4, M=4, flash_attention, remat": (dict(pp=4), None, True, 0, False,
+                                          4),
+    "pp=2 x tp=2, M=2, flash_attention, remat":
+        (dict(pp=2, tp=2), None, True, 0, False, 2),
 }
 WORLD = 4
 
 
-def _small_inputs(models, moe=False):
-    """Phase 12 (c)'s fp32 weights and tokens (a Llama, or with ``moe`` a
-    Mixtral), from CPU generators, so the ranks and the parent's CPU
-    reference draw the same ones."""
+def _small_inputs(models, moe=False, pipelined=False):
+    """Phase 12 (c)'s fp32 weights and tokens (a Llama, with ``moe`` a
+    Mixtral, with ``pipelined`` a SMALL_PIPE_LAYERS-layer Llama's
+    pipelined tree), from CPU generators, so the ranks and the parent's
+    CPU reference draw the same ones."""
     if moe:
         cfg = models.MixtralConfig(**SMALL_MOE_CFG, dtype=torch.float32)
         params = models.mixtral.init_params(
             cfg, torch.Generator().manual_seed(12), device="cpu")
         shape = SMALL_MOE_TOKENS
+    elif pipelined:
+        from ray_tpu_torch.parallel import pipeline
+
+        cfg = models.LlamaConfig(**dict(SMALL_CFG,
+                                        n_layers=SMALL_PIPE_LAYERS),
+                                 dtype=torch.float32)
+        params = pipeline.to_pipeline_params(models.init_params(
+            cfg, torch.Generator().manual_seed(12), device="cpu"))
+        shape = SMALL_PIPE_TOKENS
     else:
         cfg = models.LlamaConfig(**SMALL_CFG, dtype=torch.float32)
         params = models.init_params(cfg, torch.Generator().manual_seed(12),
@@ -2043,20 +2379,25 @@ def _counts(attention):
 
 
 def _specs(models, parallel, params, mesh):
-    """A tree's specs: mixtral_shardings for an MoE, LLAMA_RULES else."""
+    """A tree's specs: pipelined_specs for a pipelined tree,
+    mixtral_shardings for an MoE, LLAMA_RULES else."""
+    if "stacked" in params:
+        return parallel.pipelined_specs(params, mesh)
     if "router" in params["layers"][0]:
         return models.mixtral_shardings(params, mesh)
     return parallel.shardings_for_tree(params, mesh)
 
 
 def sharded_small(models, parallel, attention, sizes, attn, remat, chunked,
-                  moe, grads_path):
+                  moe, micro, grads_path):
     """Phase 12 (c) in one rank: the small model's shards on the mesh, its
-    share's backward, the gradients completed; returns the global loss and
-    this rank's launches, and rank 0 saves the gathered gradients."""
+    share's backward (through make_pipelined_loss in ``micro``
+    microbatches where given), the gradients completed; returns the global
+    loss and this rank's launches, and rank 0 saves the gathered
+    gradients."""
     from ray_tpu_torch.parallel import collectives, training
 
-    cfg, params, tokens = _small_inputs(models, moe)
+    cfg, params, tokens = _small_inputs(models, moe, pipelined=bool(micro))
     mesh = parallel.make_mesh(parallel.MeshSpec(**sizes), device="cuda",
                               backend="gloo")
     params = _tree_map(lambda t: t.to("cuda"), params)
@@ -2067,10 +2408,14 @@ def sharded_small(models, parallel, attention, sizes, attn, remat, chunked,
             if attn == "ring" else None)
     for c in COUNTERS + ("dense_routes",):
         setattr(attention, c, 0)
-    kw = {"forward": models.mixtral.sharded_forward} if moe else {}
-    share = parallel.sharded_loss_fn(shards, tokens.to("cuda"), cfg, mesh,
-                                     attn_impl=impl, remat=remat,
-                                     chunked_vocab=chunked, specs=specs, **kw)
+    if micro:
+        share = parallel.make_pipelined_loss(mesh, cfg, micro, remat=remat)(
+            shards, tokens.to("cuda"), specs)
+    else:
+        kw = {"forward": models.mixtral.sharded_forward} if moe else {}
+        share = parallel.sharded_loss_fn(
+            shards, tokens.to("cuda"), cfg, mesh, attn_impl=impl,
+            remat=remat, chunked_vocab=chunked, specs=specs, **kw)
     share.backward()
     parallel.allreduce_grads(shards, mesh, specs)
     torch.cuda.synchronize()
@@ -2080,9 +2425,10 @@ def sharded_small(models, parallel, attention, sizes, attn, remat, chunked,
                                    mesh, specs)
     if torch.distributed.get_rank() == 0:
         torch.save(_host_copy(grads), grads_path)
+    layer = shards["stacked"] if micro else shards["layers"][0]
     return dict(loss=float(loss), local_heads=[
-        shards["layers"][0]["wq"].shape[1] // cfg.head_dim,
-        shards["layers"][0]["wk"].shape[1] // cfg.head_dim], **counts)
+        layer["wq"].shape[-1] // cfg.head_dim,
+        layer["wk"].shape[-1] // cfg.head_dim], **counts)
 
 
 class AuxRecorder:
@@ -2100,14 +2446,17 @@ class AuxRecorder:
 
 
 def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
-                  chunked, model=None, seed=7):
-    """Phase 12 (a), (b) and (e) in one rank: phase 8's weights (seed 7),
-    or with ``model=models.mixtral`` phase 14's, built on the card, cut to
-    this rank's shards and the rest freed, then SHARDED_STEPS AdamW steps
-    on the phase's tokens through sharded_loss_fn (flash_attention, K2, at
-    this rank's heads and rows; a Mixtral's MoE through make_ep_moe_ffn,
-    whose aux the first step records). Every launch count and the mesh's
-    traffic are reset just before the steps and read just after."""
+                  chunked, model=None, seed=7, microbatches=None):
+    """Phase 12 (a), (b), (e), (f) and (g) in one rank: phase 8's weights
+    (seed 7), or with ``model=models.mixtral`` phase 14's, built on the
+    card, cut to this rank's shards and the rest freed, then SHARDED_STEPS
+    AdamW steps on the phase's tokens through sharded_loss_fn
+    (flash_attention, K2, at this rank's heads and rows; a Mixtral's MoE
+    through make_ep_moe_ffn, whose aux the first step records), or with
+    ``microbatches`` through make_pipelined_loss on the pipelined tree,
+    whose first step also records its group norms. Every launch count and
+    the mesh's traffic are reset just before the steps and read just
+    after."""
     from ray_tpu_torch.parallel import collectives, training
 
     model = model or models
@@ -2115,7 +2464,13 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
                               backend="gloo")
     params = model.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
-    specs = _specs(models, parallel, params, mesh)
+    if microbatches:
+        params = parallel.to_pipeline_params(params)
+        specs = parallel.pipelined_specs(params, mesh)
+        loss_fn = parallel.make_pipelined_loss(mesh, cfg, microbatches,
+                                               remat=remat)
+    else:
+        specs = _specs(models, parallel, params, mesh)
     shards = parallel.shard_params(params, mesh, specs)
     del params
     gc.collect()
@@ -2129,17 +2484,23 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
             mesh, cfg.top_k, cfg.capacity_factor))
         loss_kw["forward"] = functools.partial(
             models.mixtral.sharded_forward, moe_ffn=aux_rec)
-    norms = []  # the first step's global gradient norm
+    norms, group_sq = [], []  # the first step's
 
     def step():
         opt.zero_grad(set_to_none=True)
-        share = parallel.sharded_loss_fn(shards, tokens, cfg, mesh,
-                                         remat=remat, chunked_vocab=chunked,
-                                         specs=specs, **loss_kw)
+        if microbatches:
+            share = loss_fn(shards, tokens, specs)
+        else:
+            share = parallel.sharded_loss_fn(
+                shards, tokens, cfg, mesh, remat=remat, chunked_vocab=chunked,
+                specs=specs, **loss_kw)
         share.backward()
         parallel.allreduce_grads(shards, mesh, specs)
         if not norms:
             norms.append(parallel.global_grad_norm(shards, mesh, specs))
+            if microbatches:
+                group_sq.append(sharded_group_sq(parallel, shards, mesh,
+                                                 specs, cfg))
         opt.step()
         return collectives.allreduce(share.detach(), mesh,
                                      training.SPLIT_AXES)
@@ -2173,6 +2534,16 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
                traffic_per_step={k: (v - after_warm.get(k, 0)) / timed
                                  for k, v in sorted(mesh.traffic.items())},
                **counts)
+    if microbatches:
+        out["group_sq"] = group_sq[0]
+        # what one gather of the stage, the head and the embedding moves:
+        # every FSDP-split leaf's shard, once
+        spec_of = dict(parallel.sharding.tree_paths(specs))
+        split = [t for path, t in parallel.sharding.tree_paths(shards)
+                 if "fsdp" in parallel.sharding.spec_axes(spec_of[path])
+                 and mesh.shape["fsdp"] > 1]
+        out["fsdp_leaves"] = len(split)
+        out["fsdp_bytes"] = sum(t.numel() * t.element_size() for t in split)
     if aux_rec is not None:  # the first step's aux, summed over the ranks
         aux = collectives.allreduce(
             torch.stack(aux_rec.aux[:cfg.n_layers]).sum(), mesh,
@@ -2215,10 +2586,15 @@ def sharded_rank(rank, tmp, tokens, moe_tokens):
                 models, parallel, attention, *run,
                 os.path.join(tmp, f"small{i}.pt"))
         tokens = tokens.to("cuda")
-        for name, (sizes, remat, chunked, _) in SHARDED_RUNS.items():
+        for name, (sizes, remat, chunked, _, micro) in SHARDED_RUNS.items():
             out["train"][name] = sharded_train(
                 models, parallel, attention, models.LLAMA3_1B, tokens,
-                sizes, remat, chunked)
+                sizes, remat, chunked, microbatches=micro)
+        out["planted"] = {
+            fault: pipelined_fault(models, parallel, models.LLAMA3_1B,
+                                   tokens, SHARDED_RUNS[run][0],
+                                   SHARDED_RUNS[run][4], fault)
+            for fault, run in PLANTED.items()}
         out["train"][EP_RUN] = sharded_train(
             models, parallel, attention, mixtral_train_cfg(models),
             moe_tokens.to("cuda"), dict(ep=WORLD), True, 0,
@@ -2229,18 +2605,24 @@ def sharded_rank(rank, tmp, tokens, moe_tokens):
         dist.destroy_process_group()
 
 
-def small_reference(models, attn, remat, chunked, moe, n_shards):
-    """Phase 12 (c)'s model on the CPU, whole: loss and gradients. For the
-    Mixtral, JAX's expert-parallel loss: the CE of the whole batch plus
-    aux_coef times the mean over the ``n_shards`` token shards of each
-    shard's aux (each shard's rows through the dense MoE, which computes
-    the EP function where nothing is dropped)."""
+def small_reference(models, attn, remat, chunked, moe, micro, n_shards):
+    """Phase 12 (c)'s model on the CPU, whole: loss and gradients (a
+    pipelined tree's through loss_fn on its layers unstacked into views).
+    For the Mixtral, JAX's expert-parallel loss: the CE of the whole batch
+    plus aux_coef times the mean over the ``n_shards`` token shards of
+    each shard's aux (each shard's rows through the dense MoE, which
+    computes the EP function where nothing is dropped)."""
     from ray_tpu_torch.models.llama import next_token_targets
     from ray_tpu_torch.ops.layers import cross_entropy_loss
+    from ray_tpu_torch.parallel import pipeline
 
-    cfg, params, tokens = _small_inputs(models, moe)
+    cfg, params, tokens = _small_inputs(models, moe, pipelined=bool(micro))
     leaves = models.trainable(params)
-    if not moe:
+    if micro:
+        tree = {k: v for k, v in params.items() if k != "stacked"}
+        tree["layers"] = pipeline.unstack_layers(params["stacked"])
+        loss = models.loss_fn(tree, {"tokens": tokens}, cfg, remat=remat)
+    elif not moe:
         loss = models.loss_fn(params, {"tokens": tokens}, cfg, remat=remat,
                               chunked_vocab=chunked)
     else:
@@ -2286,11 +2668,11 @@ def sharded_training(models, parallel, attention, tokens, phase8,
         small_grads = [torch.load(os.path.join(tmp, f"small{i}.pt"))
                        for i in range(len(SHARDED_SMALL_RUNS))]
     log(f"phase 12 ranks done in {time.perf_counter() - t0} s")
-    for (name, (sizes, attn, remat, chunked, moe)), grads in zip(
+    for (name, (sizes, attn, remat, chunked, moe, micro)), grads in zip(
             SHARDED_SMALL_RUNS.items(), small_grads):
         shards = math.prod(sizes.get(a, 1) for a in ("dp", "fsdp", "ep"))
         want, want_grads = small_reference(models, attn, remat, chunked,
-                                           moe, shards)
+                                           moe, micro, shards)
         got = [r["small"][name] for r in ranks]
         if not all(abs(g["loss"] - want) <= 1e-5 * abs(want) for g in got):
             raise AssertionError(f"(c) {name}: losses {[g['loss'] for g in got]}"
@@ -2299,8 +2681,13 @@ def sharded_training(models, parallel, attention, tokens, phase8,
         worst = max(hold_grad(g, w, FP32_GRAD_RULE, f"(c) {name} grad {i}")[1]
                     for i, (g, w) in enumerate(zip(flat, want_grads)))
         n = SMALL_CFG["n_layers"]
-        expect = ({"stats_launches": n * sizes["sp"]} if attn == "ring" else
-                  {"launches": 2 * n, "bwd_launches": n})
+        if micro:
+            expect = pipelined_expect(SMALL_PIPE_LAYERS, sizes["pp"], micro,
+                                      1, lockstep=False)
+        elif attn == "ring":
+            expect = {"stats_launches": n * sizes["sp"]}
+        else:
+            expect = {"launches": 2 * n, "bwd_launches": n}
         for r, g in enumerate(got):
             counts = {c: g[c] for c in COUNTERS + ("dense_routes",)}
             if counts != {c: expect.get(c, 0) for c in counts}:
@@ -2311,37 +2698,49 @@ def sharded_training(models, parallel, attention, tokens, phase8,
             f"{FP32_GRAD_RULE}; local heads {got[0]['local_heads']}; "
             f"launches per rank {expect}")
     results = {}
-    runs = [(name, recipe, phase8[recipe])
-            for name, (*_, recipe) in SHARDED_RUNS.items()]
-    runs.append((EP_RUN, "phase 14", (phase14, sum(SHARDED_STEPS))))
-    for name, recipe, (ref, ref_steps) in runs:
+    runs = [(name, recipe, micro, phase8[recipe])
+            for name, (*_, recipe, micro) in SHARDED_RUNS.items()]
+    runs.append((EP_RUN, "phase 14", None, (phase14, sum(SHARDED_STEPS))))
+    steps = sum(SHARDED_STEPS)
+    for name, recipe, micro, (ref, ref_steps) in runs:
         got = [r["train"][name] for r in ranks]
         first, norm = got[0]["losses"][0], got[0]["grad_norm"]
         if not all(g["losses"] == got[0]["losses"] for g in got):
             raise AssertionError(f"{name}: ranks' losses differ: "
                                  f"{[g['losses'] for g in got]}")
-        held = [("first loss", first, ref["losses"][0])]
-        if "ce" in ref:
-            held.append(("CE", got[0]["ce"], ref["ce"]))
-        for what, x, want in held:
-            if not abs(x - want) <= 1e-2 * abs(want):
-                raise AssertionError(f"{name}: {what} {x}, {recipe}'s {want}")
-        if not abs(norm - ref["grad_norm"]) <= 1e-2 * ref["grad_norm"]:
-            raise AssertionError(f"{name}: first gradient norm {norm}, "
-                                 f"{recipe}'s {ref['grad_norm']}")
+        if micro:
+            sizes = SHARDED_RUNS[name][0]
+            hold_pipelined(f"phase 12 {name}", first, norm,
+                           got[0]["group_sq"], ref, sizes["pp"])
+        else:
+            held = [("first loss", first, ref["losses"][0])]
+            if "ce" in ref:
+                held.append(("CE", got[0]["ce"], ref["ce"]))
+            for what, x, want in held:
+                if not abs(x - want) <= 1e-2 * abs(want):
+                    raise AssertionError(f"{name}: {what} {x}, {recipe}'s "
+                                         f"{want}")
+            if not abs(norm - ref["grad_norm"]) <= 1e-2 * ref["grad_norm"]:
+                raise AssertionError(f"{name}: first gradient norm {norm}, "
+                                     f"{recipe}'s {ref['grad_norm']}")
         losses = got[0]["losses"]
         if not (all(math.isfinite(x) for x in losses)
                 and all(x < losses[0] for x in losses[1:])):
             raise AssertionError(f"{name}: losses {losses} not finite and "
                                  f"below the first")
-        steps = sum(SHARDED_STEPS)
-        expect = {c: ref.get(c, 0) * steps // ref_steps for c in COUNTERS}
+        if micro:  # every stage on every tick: the schedule's count
+            expect = pipelined_expect(models.LLAMA3_1B.n_layers, sizes["pp"],
+                                      micro, steps, lockstep=False)
+        else:
+            expect = {c: ref.get(c, 0) * steps // ref_steps
+                      for c in COUNTERS}
+        expect = {c: expect.get(c, 0) for c in COUNTERS}
         expect["dense_routes"] = 0
         for r, g in enumerate(got):
             counts = {c: g[c] for c in expect}
             if counts != expect:
                 raise AssertionError(f"{name} rank {r}: launches {counts}, "
-                                     f"expected {expect} ({recipe}'s rate)")
+                                     f"expected {expect}")
         log(f"phase 12 {name}: losses {losses} ({recipe}'s first "
             f"{ref['losses'][0]}, gap {first - ref['losses'][0]}); first "
             f"gradient norm {norm} ({recipe}'s {ref['grad_norm']}, ratio "
@@ -2351,6 +2750,9 @@ def sharded_training(models, parallel, attention, tokens, phase8,
             log(f"phase 12 {name}: first CE {got[0]['ce']} ({recipe}'s "
                 f"{ref['ce']}), aux over the token shards {got[0]['aux']} "
                 f"({recipe}'s, over the whole batch, {ref['aux']})")
+        if micro:
+            hold_pipeline_traffic(name, sizes, micro, tokens,
+                                  models.LLAMA3_1B.d_model, got)
         for r, g in enumerate(got):
             log(f"phase 12 {name} rank {r}: {g['step_ms']} ms/step over "
                 f"{SHARDED_STEPS[1]} timed steps (warm-up {g['warm_ms']} "
@@ -2358,6 +2760,18 @@ def sharded_training(models, parallel, attention, tokens, phase8,
                 f" GiB ({g['shard_params']} parameters), per step "
                 f"{json.dumps(g['traffic_per_step'])}")
         results[name] = got
+    for fault, run in PLANTED.items():
+        got = [r["planted"][fault] for r in ranks]
+        pp = SHARDED_RUNS[run][0]["pp"]
+        gaps = group_gaps(got[0]["group_sq"], phase8["dense"][0]["group_sq"],
+                          pp)
+        worst = max(gaps, key=gaps.get)
+        log(f"phase 12 planted fault ({fault}) on {run}: first loss "
+            f"{got[0]['loss']}; group norms' gaps from phase 8's "
+            f"{json.dumps(gaps)}, worst {worst} {gaps[worst]}")
+        if not gaps[worst] > GROUP_RTOL:
+            raise AssertionError(f"planted fault ({fault}): the group rule "
+                                 f"(GROUP_RTOL {GROUP_RTOL}) passes it")
     # (e)'s exchanges: a layer's dispatch and return, each in the forward,
     # remat's recompute and the backward; each an fp32 [E, C, D] buffer.
     cfg = mixtral_train_cfg(models)
@@ -2374,9 +2788,11 @@ def sharded_training(models, parallel, attention, tokens, phase8,
                                  f"{traffic.get('alltoall_bytes')} bytes; "
                                  f"expected {expect}")
     t0 = time.perf_counter()
-    loss = parallel.dryrun_multichip(WORLD, device="cuda", backend="gloo")
-    log(f"phase 12 (d) dryrun_multichip({WORLD}) on this card (gloo): loss "
-        f"{loss} in {time.perf_counter() - t0} s")
+    losses = parallel.dryrun_multichip(WORLD, device="cuda", backend="gloo")
+    if set(losses) != {"sharded", "pipeline", "moe"}:
+        raise AssertionError(f"phase 12 (d): the dryrun ran {sorted(losses)}")
+    log(f"phase 12 (d) dryrun_multichip({WORLD}) on this card (gloo): losses "
+        f"{json.dumps(losses)} in {time.perf_counter() - t0} s")
     return results, {name: [r["small"][name] for r in ranks]
                      for name in SHARDED_SMALL_RUNS}
 
@@ -2495,7 +2911,7 @@ def main() -> int:
     check_small_training(models, gen)
 
     cfg = models.LLAMA3_1B
-    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=gen,
+    tokens = torch.randint(0, cfg.vocab_size, TRAIN_TOKENS, generator=gen,
                            device="cuda")
     log(f"LLAMA3_1B: {cfg.param_count()} params, d_model {cfg.d_model}, "
         f"{cfg.n_layers} layers, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
@@ -2505,7 +2921,8 @@ def main() -> int:
                       timed=5, remat=False, chunked=0,
                       expect={"launches": cfg.n_layers * 6,
                               "bwd_launches": cfg.n_layers * 6},
-                      name="LLAMA3_1B remat=False chunked_vocab=0")
+                      name="LLAMA3_1B remat=False chunked_vocab=0",
+                      groups=llama_group_sq)
     remat = train_run(models, attention, cfg, tokens, seed=7, warm=1,
                       timed=2, remat=True, chunked=16384,
                       expect={"launches": cfg.n_layers * 6,
@@ -2520,6 +2937,14 @@ def main() -> int:
         raise AssertionError(f"first losses differ: dense {first[0]}, "
                              f"remat + chunked {first[1]}")
     log(f"first loss: dense {first[0]}, remat + chunked {first[1]}")
+    log(f"phase 8 dense: each layer's first gradient norm and the other "
+        f"groups' {json.dumps(stage_norms(dense['group_sq'], cfg.n_layers))}")
+
+    # Phase 16: the same weights and tokens pipelined over pp = 4, the
+    # stages in lockstep on this card.
+    lockstep = pipeline_phase(models, parallel, attention, cfg, tokens,
+                              dense)
+    log(f"phase 16 done at {time.perf_counter() - t_start} s")
 
     stats_rows = check_stats(attention, gen)
     check_small_sp(models, parallel, attention, gen)
@@ -2586,7 +3011,10 @@ def main() -> int:
     main = next(r for r in rows if r["L"] == 1024)
     train = bwd_rows[0]
     train_shape = "B=4 L=2048 H=32 Hkv=8 D=64 causal bf16"
+    pipe_launches = {f"phase 16 {name}": {c: run[c] for c in COUNTERS}
+                     for name, run in lockstep.items()}
     bwd_launches = (dense["bwd_launches"] + remat["bwd_launches"]
+                    + sum(r["bwd_launches"] for r in pipe_launches.values())
                     + k2["bwd_launches"] + uly["bwd_launches"]
                     + mixtral_train["bwd_launches"]
                     + vit_train["bwd_launches"]
@@ -2599,12 +3027,15 @@ def main() -> int:
         "also_replaces": "ray_tpu/ops/attention.py:231 (forward)",
         "launches": serve_launches + sum(slice_launches.values())
         + dense["launches"] + remat["launches"] + k2["launches"]
+        + sum(r["launches"] for r in pipe_launches.values())
         + uly["launches"] + mixtral_serve["launches"]
         + mixtral_train["launches"] + vit_train["launches"]
         + vit_forward_launches + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
                              "train_remat_chunked": remat["launches"],
+                             **{k: r["launches"]
+                                for k, r in pipe_launches.items()},
                              "train_8k_flash_attention": k2["launches"],
                              "train_8k_ulysses": uly["launches"],
                              "mixtral_serve": mixtral_serve["launches"],
@@ -2643,6 +3074,8 @@ def main() -> int:
             "launches_by_path": {"train_dense": dense["bwd_launches"],
                                  "train_remat_chunked":
                                      remat["bwd_launches"],
+                                 **{k: r["bwd_launches"]
+                                    for k, r in pipe_launches.items()},
                                  "train_8k_flash_attention":
                                      k2["bwd_launches"],
                                  "train_8k_ulysses": uly["bwd_launches"],
@@ -2668,8 +3101,8 @@ def main() -> int:
             "backward_bound_ms": train["bound_ms"],
             "di_ms": train["di_ms"], "di_device_ms": train["di_device_ms"],
             "deterministic": True,
-            "shapes": {f"B={r['B']} L={r['L']} D={r['D']} causal="
-                       f"{r['causal']}": {f: r[f] for f in (
+            "shapes": {f"B={r['B']} L={r['L']} H={r['H']}/{r['Hkv']} "
+                       f"D={r['D']} causal={r['causal']}": {f: r[f] for f in (
                            f"{name}_ms", "bwd_ms", "bwd_device_ms",
                            "library_ms", "library_device_ms",
                            f"{name}_bound_ms")} for r in bwd_rows},

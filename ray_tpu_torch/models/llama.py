@@ -232,20 +232,35 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     cos, sin = rope_frequencies(cfg.head_dim, seq_offset + L,
                                 cfg.rope_theta, device=tokens.device)
     cos, sin = cos[seq_offset:], sin[seq_offset:]
-    if shard is None:
-        x = params["embedding"][tokens.long()].to(cfg.dtype)
-    else:
-        x = shard.embed(shard.param("embedding", params["embedding"]),
-                        tokens).to(cfg.dtype)
+    x = _embed(params, tokens, cfg, shard)
     for i, layer in enumerate(params["layers"]):
         if remat and torch.is_grad_enabled():
             x = checkpoint(_layer, x, layer, cos, sin, cfg, attn_impl, shard,
                            i, use_reentrant=False)
         else:
             x = _layer(x, layer, cos, sin, cfg, attn_impl, shard, i)
+    return _final_norm(params, x, cfg, shard)
+
+
+def _embed(params, tokens, cfg: LlamaConfig, shard=None):
+    """The rows of ``tokens`` in the embedding, in ``cfg.dtype``."""
+    if shard is None:
+        return params["embedding"][tokens.long()].to(cfg.dtype)
+    return shard.embed(shard.param("embedding", params["embedding"]),
+                       tokens).to(cfg.dtype)
+
+
+def _final_norm(params, x, cfg: LlamaConfig, shard=None):
     norm = params["norm"] if shard is None else \
         shard.param("norm", params["norm"])
     return rms_norm(x, norm, cfg.norm_eps)
+
+
+def _logits(params, x, cfg: LlamaConfig, shard=None):
+    """The head's logits of the final-norm hidden states ``x``."""
+    if shard is not None:
+        x = shard.enter(x)
+    return mm(x, _head(params, cfg, shard))
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
@@ -256,9 +271,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
     as ``forward_hidden``'s."""
     x = forward_hidden(params, tokens, cfg, remat=remat, attn_impl=attn_impl,
                        seq_offset=seq_offset, shard=shard)
-    if shard is not None:
-        x = shard.enter(x)
-    return mm(x, _head(params, cfg, shard))
+    return _logits(params, x, cfg, shard)
 
 
 def next_token_targets(tokens: torch.Tensor) -> torch.Tensor:

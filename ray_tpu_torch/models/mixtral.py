@@ -21,7 +21,6 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.layers import cross_entropy_loss, rms_norm, rope_frequencies
-from ..ops.quant import mm
 from ..parallel.moe import expert_shardings, make_ep_moe_ffn, moe_ffn_dense
 from ..parallel.sharding import TP, shardings_for_tree
 from . import llama
@@ -137,11 +136,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MixtralConfig,
             return moe_ffn_dense(x, router, experts, cfg.top_k)
     cos, sin = rope_frequencies(cfg.head_dim, tokens.shape[1],
                                 cfg.rope_theta, device=tokens.device)
-    if shard is None:
-        x = params["embedding"][tokens.long()].to(cfg.dtype)
-    else:
-        x = shard.embed(shard.param("embedding", params["embedding"]),
-                        tokens).to(cfg.dtype)
+    x = llama._embed(params, tokens, cfg, shard)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, layer in enumerate(params["layers"]):
         if remat and torch.is_grad_enabled():
@@ -151,12 +146,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MixtralConfig,
             x, aux = _layer(x, layer, cos, sin, cfg, attn_impl, moe_ffn,
                             shard, i)
         aux_total = aux_total + aux
-    norm = params["norm"] if shard is None else \
-        shard.param("norm", params["norm"])
-    x = rms_norm(x, norm, cfg.norm_eps)
-    if shard is not None:
-        x = shard.enter(x)
-    return mm(x, llama._head(params, cfg, shard)), aux_total
+    x = llama._final_norm(params, x, cfg, shard)
+    return llama._logits(params, x, cfg, shard), aux_total
 
 
 def sharded_forward(params, tokens, cfg: MixtralConfig, attn_impl=None,

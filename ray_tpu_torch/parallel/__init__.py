@@ -5,15 +5,21 @@ gradient-carrying ones FSDP, TP, Ulysses and the MoE need
 parameter tree (``sharding``), ring attention through the stats kernel and
 Ulysses (``ring_attention``, ``ulysses``), the MoE and its expert
 parallelism over the ``ep`` axis (``moe``), a step's loss and gradients
-over a split batch and sharded parameters (``training``), and the sharded
-dryrun (``dryrun``). The ``pp`` axis is not ported yet."""
+over a split batch and sharded parameters (``training``), the GPipe
+schedule over the ``pp`` axis with TP and FSDP inside its stages
+(``pipeline``), the MPMD pipeline's stage math (``mpmd_pipeline``; its
+stage actors wait for the port's actors), and the sharded dryrun
+(``dryrun``)."""
 
-from . import collectives, moe
+from . import collectives, moe, mpmd_pipeline
 from .dryrun import dryrun_multichip, dryrun_rank
 from .mesh import (AXES, Mesh, MeshSpec, data_axes, local_batch_size,
                    make_mesh, mesh_spec_from_string, shard_batch)
 from .moe import (ep_moe_ffn, expert_shardings, make_ep_moe_ffn,
                   moe_ffn_dense)
+from .pipeline import (make_pipelined_loss, make_stage_fn,
+                       pipeline_shardings, pipelined_specs, spmd_pipeline,
+                       stack_layers, to_pipeline_params, unstack_layers)
 from .ring_attention import make_ring_attention, ring_attention
 from .sharding import (LLAMA_RULES, VIT_RULES, Placement,
                        activation_sharding, clean_spec, gather_params,
@@ -33,4 +39,7 @@ __all__ = [
     "optimizer_shardings", "activation_sharding", "Placement",
     "dryrun_multichip", "dryrun_rank", "moe", "moe_ffn_dense",
     "ep_moe_ffn", "make_ep_moe_ffn", "expert_shardings",
+    "spmd_pipeline", "make_stage_fn", "stack_layers", "unstack_layers",
+    "pipeline_shardings", "make_pipelined_loss", "to_pipeline_params",
+    "pipelined_specs", "mpmd_pipeline",
 ]

@@ -20,7 +20,9 @@ card.
 ``gather_param``, ``allreduce_fwd`` and ``allreduce_bwd`` carry a gradient
 of their own, for FSDP and tensor parallelism (``parallel/sharding.py``);
 ``alltoall`` carries the exchange back as its gradient, for Ulysses and
-the MoE's expert parallelism (``parallel/moe.py``).
+the MoE's expert parallelism (``parallel/moe.py``); ``rotate`` carries the
+hop back, for the ring's K/V and the pipeline's activations
+(``parallel/ring_attention.py``, ``parallel/pipeline.py``).
 
 The host tier (``HostCollectiveGroup``, reductions between actors through
 the object store) belongs to the runtime tier and is not ported here.
@@ -217,6 +219,33 @@ class _AllToAll(torch.autograd.Function):
         mesh, axis, split_axis, concat_axis = ctx.args
         return (_alltoall(g, mesh, axis, concat_axis, split_axis),
                 None, None, None, None)
+
+
+class _RingShift(torch.autograd.Function):
+    """One hop forward along the axis's ring; its gradient is the hop
+    back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return permute(x, mesh, axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return permute(g, *ctx.args, -1), None, None
+
+
+def rotate(xs: List[torch.Tensor], mesh: Mesh,
+           axis: str) -> List[torch.Tensor]:
+    """One hop forward along the axis for the tensors of the ranks this
+    process runs (``parallel.mesh.rank_shards``' convention): rank j's
+    tensor goes to rank j + 1 and the last rank's to rank 0. Over a
+    process group ``xs`` holds this rank's one tensor and the hop is
+    ``permute`` with the hop back as its gradient; on a one-device mesh
+    ``xs`` holds every rank's, and the hop is a turn of the list."""
+    if mesh.distributed:
+        return [_RingShift.apply(xs[0], mesh, axis)]
+    return xs[-1:] + xs[:-1]
 
 
 class _AllReduceFwd(torch.autograd.Function):

@@ -5,13 +5,17 @@ port's counterpart of ``__graft_entry__.dryrun_multichip``.
 process group someone else started (the tests call it in theirs);
 ``dryrun_multichip`` spawns the ``n`` processes, joins them in a group and
 runs it. The mesh is factored as the reference's: ``tp`` and ``sp`` take 2
-where they divide, ``fsdp`` the rest. The reference's pipeline, MoE,
-multi-host and MPMD sub-dryruns and its 8B certificate wait for the port
-of those parts, and are reported as not run.
+where they divide, ``fsdp`` the rest. Where 4 divides ``n``, the
+reference's pipeline part (``pp`` = 2 x ``tp`` = 2, ``dp`` the rest, two
+microbatches) and its MoE part (a small Mixtral on ``ep`` = 2 x ``tp`` =
+2) follow, one AdamW step each. The reference's multi-host and MPMD
+sub-dryruns and its 8B certificate wait for the port of those parts, and
+are reported as not run.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 import math
 import os
@@ -26,17 +30,24 @@ from ..models.convert import trainable
 from ..models.llama import LlamaConfig, init_params
 from .collectives import allreduce
 from .mesh import MeshSpec, make_mesh
+from .pipeline import make_pipelined_loss, pipelined_specs, to_pipeline_params
 from .ring_attention import make_ring_attention
 from .sharding import shard_params, shardings_for_tree
 from .training import SPLIT_AXES, allreduce_grads, sharded_loss_fn
 
 #: The reference's dryrun model (``__graft_entry__.py``), in fp32.
-DRYRUN_CFG = LlamaConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=8,
-                         n_kv_heads=4, d_ff=128, max_seq_len=128,
-                         dtype=torch.float32)
+DRYRUN_DIMS = dict(vocab_size=512, d_model=64, n_layers=2, n_heads=8,
+                   n_kv_heads=4, d_ff=128, max_seq_len=128)
+DRYRUN_CFG = LlamaConfig(**DRYRUN_DIMS, dtype=torch.float32)
+#: The reference's MoE part's model: DRYRUN_CFG's widths, 4 experts, top
+#: 2, and its MoE's capacity factor (``moe_cfg``).
+DRYRUN_MOE = dict(n_experts=4, top_k=2, capacity_factor=4.0)
+#: How long a rank waits on a collective before it fails the run.
+RANK_TIMEOUT = datetime.timedelta(seconds=600)
+#: The pipeline part's microbatches.
+DRYRUN_MICROBATCHES = 2
 #: The reference's parts that the port's dryrun does not run yet.
-NOT_RUN = ("_dryrun_pipeline", "_dryrun_moe", "_dryrun_multihost",
-           "_dryrun_mpmd_pipeline", "_report_8b_cert")
+NOT_RUN = ("_dryrun_multihost", "_dryrun_mpmd_pipeline", "_report_8b_cert")
 
 
 def dryrun_spec(n_devices: int) -> MeshSpec:
@@ -60,34 +71,119 @@ def dryrun_inputs(spec: MeshSpec, device):
     return params, tokens
 
 
-def dryrun_rank(n_devices: int, device=None, backend=None) -> float:
-    """One AdamW step of ``DRYRUN_CFG`` on this rank's shards, through the
-    ring, in a process group of ``n_devices`` ranks that is already
-    initialised; returns the global loss (the same on every rank) and
-    raises if it is not finite. Rank 0 prints the reference's line."""
-    spec = dryrun_spec(n_devices)
-    mesh = make_mesh(spec, device=device, backend=backend)
-    params, tokens = dryrun_inputs(spec, mesh.device)
-    specs = shardings_for_tree(params, mesh)
+def pipeline_spec(n_devices: int) -> MeshSpec:
+    """The pipeline part's mesh: ``pp`` = 2 x ``tp`` = 2, ``dp`` the
+    rest."""
+    return MeshSpec(pp=2, tp=2, dp=-1).resolve(n_devices)
+
+
+def moe_spec(n_devices: int) -> MeshSpec:
+    """The MoE part's mesh: ``ep`` = 2 x ``tp`` = 2, ``dp`` the rest."""
+    return MeshSpec(ep=2, tp=2, dp=-1).resolve(n_devices)
+
+
+def pipeline_inputs(spec: MeshSpec, device):
+    """The pipeline part's global weights (seed 0, pipelined) and tokens
+    [4 dp, 32] (seed 1)."""
+    params, _ = dryrun_inputs(spec, device)
+    tokens = torch.randint(0, DRYRUN_CFG.vocab_size, (spec.dp * 4, 32),
+                           generator=torch.Generator(device).manual_seed(1),
+                           device=device)
+    return to_pipeline_params(params), tokens
+
+
+def _mixtral():
+    # models.mixtral imports parallel.moe, whose package imports this module
+    from ..models import mixtral
+
+    return mixtral
+
+
+def moe_cfg():
+    """The MoE part's model, ``DRYRUN_MOE`` on ``DRYRUN_CFG``."""
+    return _mixtral().MixtralConfig(**DRYRUN_DIMS, **DRYRUN_MOE,
+                                    dtype=torch.float32)
+
+
+def moe_inputs(spec: MeshSpec, device):
+    """The MoE part's global weights (seed 0) and tokens [2 dp ep fsdp,
+    32] (seed 1)."""
+    cfg = moe_cfg()
+    params = _mixtral().init_params(
+        cfg, torch.Generator(device).manual_seed(0), device=device)
+    rows = 2 * spec.dp * spec.ep * spec.fsdp
+    tokens = torch.randint(0, cfg.vocab_size, (rows, 32),
+                           generator=torch.Generator(device).manual_seed(1),
+                           device=device)
+    return params, tokens
+
+
+def _step(loss_fn, params, specs, mesh, what: str) -> float:
+    """One AdamW step of ``loss_fn(shards) -> share`` on this rank's shards
+    of ``params``; the global loss, which must be finite."""
     shards = shard_params(params, mesh, specs)
-    del params
     opt = torch.optim.AdamW(trainable(shards), lr=1e-3, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=1e-4)
-    share = sharded_loss_fn(shards, tokens, DRYRUN_CFG, mesh,
-                            attn_impl=make_ring_attention(mesh, causal=True),
-                            remat=True, specs=specs)
+    share = loss_fn(shards)
     share.backward()
     allreduce_grads(shards, mesh, specs)
     opt.step()
     loss = float(allreduce(share.detach(), mesh, SPLIT_AXES))
     if not math.isfinite(loss):
-        raise AssertionError(f"non-finite loss in dryrun: {loss}")
-    if dist.get_rank() == 0:
-        print(f"dryrun_multichip({n_devices}): mesh="
-              f"{ {a: n for a, n in mesh.shape.items() if n > 1} } "
-              f"loss={loss:.4f} OK; not run (not ported yet): "
-              f"{', '.join(NOT_RUN)}", flush=True)
+        raise AssertionError(f"non-finite {what} loss in dryrun: {loss}")
     return loss
+
+
+def _axes(mesh) -> dict:
+    return {a: n for a, n in mesh.shape.items() if n > 1}
+
+
+def dryrun_rank(n_devices: int, device=None, backend=None) -> dict:
+    """One AdamW step of ``DRYRUN_CFG`` on this rank's shards, through the
+    ring, in a process group of ``n_devices`` ranks that is already
+    initialised; where 4 divides ``n_devices``, then one step of the same
+    model pipelined over ``pipeline_spec`` and one of ``moe_cfg()``
+    over ``moe_spec`` (``make_ep_moe_ffn``). Returns each part's global
+    loss by name (``"sharded"``, ``"pipeline"``, ``"moe"``; the same on
+    every rank) and raises if one is not finite. Rank 0 prints the
+    reference's lines."""
+    spec = dryrun_spec(n_devices)
+    mesh = make_mesh(spec, device=device, backend=backend)
+    params, tokens = dryrun_inputs(spec, mesh.device)
+    specs = shardings_for_tree(params, mesh)
+    ring = make_ring_attention(mesh, causal=True)
+    losses = {"sharded": _step(
+        lambda p: sharded_loss_fn(p, tokens, DRYRUN_CFG, mesh,
+                                  attn_impl=ring, remat=True, specs=specs),
+        params, specs, mesh, "sharded")}
+    lines = [f"dryrun_multichip({n_devices}): mesh={_axes(mesh)} "
+             f"loss={losses['sharded']:.4f} OK"]
+    if n_devices % 4 == 0:
+        pmesh = make_mesh(pipeline_spec(n_devices), device=device,
+                          backend=backend)
+        params, tokens = pipeline_inputs(pmesh.spec, pmesh.device)
+        specs = pipelined_specs(params, pmesh)
+        ploss = make_pipelined_loss(pmesh, DRYRUN_CFG, DRYRUN_MICROBATCHES)
+        losses["pipeline"] = _step(lambda p: ploss(p, tokens, specs),
+                                   params, specs, pmesh, "pipeline")
+        lines.append(f"dryrun pipeline: mesh={_axes(pmesh)} "
+                     f"loss={losses['pipeline']:.4f} OK")
+        emesh = make_mesh(moe_spec(n_devices), device=device,
+                          backend=backend)
+        params, tokens = moe_inputs(emesh.spec, emesh.device)
+        mixtral = _mixtral()
+        specs = mixtral.mixtral_shardings(params, emesh)
+        losses["moe"] = _step(
+            lambda p: sharded_loss_fn(p, tokens, moe_cfg(), emesh,
+                                      remat=True, specs=specs,
+                                      forward=mixtral.sharded_forward),
+            params, specs, emesh, "moe")
+        lines.append(f"dryrun moe: mesh={_axes(emesh)} "
+                     f"loss={losses['moe']:.4f} OK")
+    if dist.get_rank() == 0:
+        lines.append(f"not run (not ported yet): {', '.join(NOT_RUN)}")
+        print("\n".join(lines), flush=True)
+    return losses
 
 
 def _child(rank, n_devices, tmp, device, backend):
@@ -98,19 +194,19 @@ def _child(rank, n_devices, tmp, device, backend):
     dist.init_process_group(
         backend or ("nccl" if device.type == "cuda" else "gloo"),
         store=dist.FileStore(os.path.join(tmp, "store"), n_devices),
-        rank=rank, world_size=n_devices)
+        rank=rank, world_size=n_devices, timeout=RANK_TIMEOUT)
     try:
-        loss = dryrun_rank(n_devices, device=device, backend=backend)
+        losses = dryrun_rank(n_devices, device=device, backend=backend)
         if rank == 0:
             with open(os.path.join(tmp, "loss.json"), "w") as f:
-                json.dump(loss, f)
+                json.dump(losses, f)
     finally:
         dist.destroy_process_group()
 
 
-def dryrun_multichip(n_devices: int, device=None, backend=None) -> float:
+def dryrun_multichip(n_devices: int, device=None, backend=None) -> dict:
     """Spawn ``n_devices`` processes, join them in a process group through
-    a file store and run ``dryrun_rank`` in each; returns the loss. On
+    a file store and run ``dryrun_rank`` in each; returns its losses. On
     CUDA rank r takes card ``r % device_count``; the group is NCCL unless
     ``backend`` names another (``"gloo"`` puts several ranks on one card).
     A failed rank raises here."""

@@ -44,30 +44,14 @@ from .mesh import Mesh, rank_shards
 _BWD_CHUNK = 512
 
 
-class _Shift(torch.autograd.Function):
-    """One rotation over a process group: this rank's tensor goes to the
-    next rank along the axis. Its gradient goes back the other way."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
-        return collectives.permute(x, mesh, axis, 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        return collectives.permute(g, ctx.mesh, ctx.axis, -1), None, None
-
-
 def _ppermute(xs: List[torch.Tensor], mesh: Mesh,
               axis: str) -> List[torch.Tensor]:
     """Every ring rotation goes through this seam (the mirror of
     ``ulysses._all_to_all``), so tests can count the bytes that travel:
     K/V blocks and the backward's dK/dV shards move at their kv-head
     count. ``xs`` holds one shard per rank this process runs; rank j's
-    shard moves to rank j + 1."""
-    if mesh.distributed:
-        return [_Shift.apply(xs[0], mesh, axis)]
-    return xs[-1:] + xs[:-1]
+    shard moves to rank j + 1 (``collectives.rotate``)."""
+    return collectives.rotate(xs, mesh, axis)
 
 
 def _visible_rows(my_idx: int, src_idx: int, Lq: int, Lk: int, causal: bool,

@@ -24,7 +24,12 @@ An expert leaf of an MoE tree (``parallel/moe.py``'s ``expert_shardings``)
 also stays split over ``ep``: a rank holds its own experts and the tokens
 come to them.
 
-Not ported here: ``stage_submesh`` comes with the pipeline.
+A stacked layer leaf of the pipelined tree (``parallel/pipeline.py``'s
+``pipeline_shardings``) stays split over ``pp``: a rank holds its stage's
+layers.
+
+Not ported here: ``stage_submesh`` (a stage's devices for the MPMD actor
+pipeline) waits for the port's actors.
 ``constrain`` (a sharding hint inside ``jit``) has no eager counterpart:
 each rank's tensors already are its shards. ``apply_shardings`` is
 ``shard_params``.
@@ -79,9 +84,9 @@ VIT_RULES: Tuple[Tuple[str, Spec], ...] = (
 
 #: The axis whose shards stay split in the model's products.
 TP = "tp"
-#: The axes ``Placement.param`` leaves split: tp (Megatron's products) and
-#: ep (each rank's own experts).
-KEPT_AXES = (TP, "ep")
+#: The axes ``Placement.param`` leaves split: tp (Megatron's products), ep
+#: (each rank's own experts) and pp (each stage's own layers).
+KEPT_AXES = (TP, "ep", "pp")
 
 
 def spec_for(path: str, rules: Sequence[Tuple[str, Spec]] = LLAMA_RULES
@@ -267,14 +272,15 @@ class VocabShard:
 
 class Placement:
     """A Llama or Mixtral parameter tree's shards on a process-group mesh,
-    as ``models.llama`` and ``models.mixtral`` use them: ``specs`` is
-    ``shardings_for_tree`` (``LLAMA_RULES``) or ``mixtral_shardings`` of
-    the global tree, or None for a tree replicated on every rank.
+    as ``models.llama``, ``models.mixtral`` and ``parallel.pipeline`` use
+    them: ``specs`` is ``shardings_for_tree`` (``LLAMA_RULES``),
+    ``mixtral_shardings`` or ``pipelined_specs`` of the global tree, or
+    None for a tree replicated on every rank.
 
-    ``param`` gathers a leaf over every axis of its spec but ``tp`` and
-    ``ep``, with a reduce-scatter as its gradient. Where the specs split
-    the model's products over ``tp`` (``tp`` > 1), each rank holds
-    ``n_heads / tp`` query heads, ``n_kv_heads / tp`` kv heads,
+    ``param`` gathers a leaf over every axis of its spec but ``tp``,
+    ``ep`` and ``pp``, with a reduce-scatter as its gradient. Where the
+    specs split the model's products over ``tp`` (``tp`` > 1), each rank
+    holds ``n_heads / tp`` query heads, ``n_kv_heads / tp`` kv heads,
     ``d_ff / tp`` hidden units and ``vocab_size / tp`` rows of the vocab
     (a Mixtral's experts too); ``enter`` and ``leave``
     are Megatron's f and g around each split block, ``embed`` the

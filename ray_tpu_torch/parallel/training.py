@@ -61,9 +61,27 @@ def sharded_loss_fn(params: Dict[str, Any], tokens: torch.Tensor,
     ``(logits, extra)``: ``extra`` None, or a term the rank adds to its
     share as it is (``models.mixtral.sharded_forward``: its share of the
     load-balance loss). Unless given, llama's forward with no term; only
-    llama's takes ``chunked_vocab``."""
+    llama's takes ``chunked_vocab``.
+
+    A ``pp`` mesh pipelines the layers over its stages: its loss is
+    ``parallel.make_pipelined_loss``'s, and this one raises."""
     if mesh.shape["pp"] > 1:
-        raise NotImplementedError("pp meshes are not ported yet")
+        raise NotImplementedError(
+            "a pp mesh pipelines the layers over its stages: take the loss "
+            "from parallel.make_pipelined_loss")
+    return loss_share(params, tokens, cfg, mesh, attn_impl=attn_impl,
+                      remat=remat, chunked_vocab=chunked_vocab, specs=specs,
+                      forward=forward)
+
+
+def loss_share(params: Dict[str, Any], tokens: torch.Tensor,
+               cfg: LlamaConfig, mesh: Mesh, attn_impl=None,
+               remat: bool = False, chunked_vocab: int = 0,
+               specs: Any = None, forward=None) -> torch.Tensor:
+    """``sharded_loss_fn``'s share on any mesh: the batch split, the
+    targets, the share's rescaling and the ``forward`` hook, which the
+    pipelined loss (``parallel.pipeline``) fills with its forward over the
+    ``pp`` stages."""
     if forward is not None and chunked_vocab > 0:
         raise NotImplementedError("chunked_vocab streams llama's head only")
     tok = shard_batch(mesh, tokens)

@@ -396,11 +396,14 @@ def test_port_sources_import_no_jax_and_no_ray_tpu():
             bad += [f"{path.name}: {n}" for n in names if _forbidden(n)]
     names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
     # the training slice's loss, the code that builds and loads the .cu
-    # kernels and the sequence-parallel modules are covered like the rest
+    # kernels, the sequence-parallel modules and the pipeline's are
+    # covered like the rest
     assert {"ray_tpu_torch/ops/chunked_xent.py",
             "ray_tpu_torch/ops/attention.py",
             "ray_tpu_torch/parallel/ring_attention.py",
-            "ray_tpu_torch/parallel/ulysses.py"} <= names
+            "ray_tpu_torch/parallel/ulysses.py",
+            "ray_tpu_torch/parallel/pipeline.py",
+            "ray_tpu_torch/parallel/mpmd_pipeline.py"} <= names
     assert len(_port_sources()) > 10
     assert not bad, bad
 
@@ -411,7 +414,8 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch, ray_tpu_torch.ops, ray_tpu_torch.models\n"
         "import ray_tpu_torch.serve, ray_tpu_torch.util.events\n"
         "import ray_tpu_torch.ops.chunked_xent, ray_tpu_torch.models.convert\n"
-        "import ray_tpu_torch.parallel\n"
+        "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.pipeline\n"
+        "import ray_tpu_torch.parallel.mpmd_pipeline\n"
         "from ray_tpu_torch.ops import attention\n"
         "assert attention.KERNELS == ('flash_fwd', 'flash_bwd', "
         "'flash_stats')\n"

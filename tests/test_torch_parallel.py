@@ -31,10 +31,20 @@ every gathered gradient and one AdamW step against JAX's
 ``mixtral.loss_fn(moe_ffn=make_ep_moe_ffn(...))`` under a mesh of the same
 shape with ``mixtral_shardings`` applied and ``optax.adamw``.
 
+And the pipeline over the ``pp`` axis, on the meshes pp=4, pp=2 x tp=2
+and pp=2 x fsdp=2 and on a one-device pp=4 mesh (its stages in lockstep):
+a 4-layer Llama's pipelined tree cut by ``pipelined_specs``, the loss
+share of ``make_pipelined_loss``, every gathered gradient and every
+gathered parameter after one AdamW step against JAX's
+``make_pipelined_loss`` under a mesh of the same shape with
+``pipeline_shardings`` applied, the hops and gathers a step, and the
+dryrun's pipeline and MoE parts.
+
 JAX is imported inside the tests only: the gloo children import this
 module again, and they must not load JAX.
 """
 
+import datetime
 import importlib
 import os
 
@@ -56,6 +66,7 @@ from ray_tpu_torch.parallel import (MeshSpec, collectives, make_mesh,
 from ray_tpu_torch.parallel import dryrun as tdryrun
 from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.parallel import moe as tmoe
+from ray_tpu_torch.parallel import pipeline as tpipe
 from ray_tpu_torch.parallel import sharding as tsharding
 from ray_tpu_torch.parallel import training as ttrain
 from ray_tpu_torch.parallel import ulysses as tuly
@@ -98,6 +109,16 @@ EP_SPECS = {"w_gate": ("ep", None, "tp"), "w_up": ("ep", None, "tp"),
 MCFG = dict(TCFG, n_experts=4, top_k=2)
 # Below this gradient an AdamW step follows the gradient's last digits.
 ADAM_SMALL_GRAD = 1e-6
+# The pipeline's meshes with their microbatch counts, and its model: 4
+# layers (a layer a stage at pp=4), 4/2 heads; tokens [4, 32], so a
+# microbatch is a row on every mesh.
+PIPE = {"pp4": (dict(pp=4), 4), "pp2tp2": (dict(pp=2, tp=2), 4),
+        "pp2fsdp2": (dict(pp=2, fsdp=2), 2)}
+PCFG = dict(vocab_size=128, d_model=64, n_layers=4, n_heads=4, n_kv_heads=2,
+            d_ff=128, max_seq_len=64)
+PIPE_TOKENS = (4, 32)
+PIPE_TRAFFIC = ("send_recv", "send_recv_bytes", "allgather",
+                "allgather_bytes", "reducescatter", "reducescatter_bytes")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -136,6 +157,20 @@ def _llama_tokens(shape=LLAMA_TOKENS, seed=5):
 
 def _shard_tokens():
     return _llama_tokens(SHARD_TOKENS, 6)
+
+
+def _pipe_inputs():
+    """The pipeline's weights (JAX's ``to_pipeline_params`` tree as numpy)
+    and tokens."""
+    import jax
+    from ray_tpu.models import llama as jllama
+    from ray_tpu.parallel import to_pipeline_params
+
+    jcfg = jllama.LlamaConfig(**PCFG, dtype=jax.numpy.float32)
+    tree = to_pipeline_params(jllama.init_params(jcfg, jax.random.PRNGKey(3)))
+    tokens = np.random.default_rng(7).integers(
+        0, PCFG["vocab_size"], PIPE_TOKENS).astype(np.int32)
+    return jax.tree_util.tree_map(np.asarray, tree), tokens
 
 
 def _flat(tree, prefix=""):
@@ -460,6 +495,41 @@ def test_one_device_sharded_loss_is_loss_fn():
     assert all(torch.equal(g, w) for g, w in zip(got_g, want_g))
 
 
+def test_one_device_pipelined_loss_matches_jax_and_loss_fn(cpu_mesh8):
+    """pp=4 on a one-device mesh, the stages in lockstep, M=4 with remat:
+    the loss and every gradient against JAX's make_pipelined_loss on 4
+    devices, and against loss_fn on the unstacked tree."""
+    pparams, tokens = _pipe_inputs()
+    want_loss, want_grads, _ = _jax_pipelined_step(cpu_mesh8, pparams,
+                                                   tokens, *PIPE["pp4"])
+    cfg = tllama.LlamaConfig(**PCFG, dtype=torch.float32)
+    mesh = make_mesh(MeshSpec(pp=4), device=CPU)
+    results = []
+    for pipelined in (True, False):
+        params = params_from_numpy(pparams, device=CPU)
+        trainable(params)
+        if pipelined:
+            loss = tpipe.make_pipelined_loss(mesh, cfg, 4)(
+                params, torch.from_numpy(tokens))
+        else:  # the same leaves, unstacked into views
+            tree = {k: v for k, v in params.items() if k != "stacked"}
+            tree["layers"] = tpipe.unstack_layers(params["stacked"])
+            loss = tllama.loss_fn(tree, {"tokens": torch.from_numpy(tokens)},
+                                  cfg)
+        loss.backward()
+        results.append((loss.item(), {
+            k.replace("/", "."): t.grad.numpy()
+            for k, t in tsharding.tree_paths(params)}))
+    (got, got_g), (plain, plain_g) = results
+    np.testing.assert_allclose(got, want_loss, **VALUE_TOL)
+    np.testing.assert_allclose(got, plain, **VALUE_TOL)
+    assert got_g.keys() == want_grads.keys() == plain_g.keys()
+    for key, w in want_grads.items():
+        np.testing.assert_allclose(got_g[key], w, **GRAD_TOL, err_msg=key)
+        np.testing.assert_allclose(got_g[key], plain_g[key], **GRAD_TOL,
+                                   err_msg=key)
+
+
 def test_llama_attn_impl_and_seq_offset_match_jax():
     """``attn_impl`` replaces the attention as JAX's does (the ring gives
     the flash path's logits), and a shard run at ``seq_offset`` gives the
@@ -506,8 +576,10 @@ def _child(rank, store, out_dir, inputs):
     """One rank of the gloo group: every per-rank case, results to
     ``out_dir/rank<r>.npz``."""
     torch.set_num_threads(1)
+    # a rank that waits on a hop no other rank makes fails the group
     dist.init_process_group("gloo", store=dist.FileStore(store, WORLD),
-                            rank=rank, world_size=WORLD)
+                            rank=rank, world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=300))
     try:
         res = {}
         mesh = make_mesh(MeshSpec(sp=SP), device=CPU)
@@ -534,7 +606,7 @@ def _child(rank, store, out_dir, inputs):
                    chunked_vocab=CHUNK)
         for name, sizes in SHARDED.items():
             m = make_mesh(MeshSpec(**sizes), device=CPU)
-            _roundtrip(res, name, m, inputs)
+            _roundtrip(res, name, m, inputs["params"])
             ring = make_ring_attention(m, block_impl="flash")
             _sharded_step(res, name, m, inputs, ring)
             _sharded_step(res, f"{name}_remat_chunked", m, inputs, ring,
@@ -549,7 +621,14 @@ def _child(rank, store, out_dir, inputs):
             _sharded_step(res, f"{name}_mixtral", ep_mesh, inputs, None,
                           model="mixtral", remat=True,
                           forward=tmix.sharded_forward)
-        res["dryrun_loss"] = np.array(tdryrun.dryrun_rank(WORLD, device=CPU))
+        for name, (sizes, n_micro) in PIPE.items():
+            pmesh = make_mesh(MeshSpec(**sizes), device=CPU)
+            _roundtrip(res, name, pmesh, inputs["pparams"],
+                       tpipe.pipelined_specs)
+            _sharded_step(res, f"{name}_pipeline", pmesh, inputs, None,
+                          model="pipeline", microbatches=n_micro)
+        for part, loss in tdryrun.dryrun_rank(WORLD, device=CPU).items():
+            res[f"dryrun_{part}_loss"] = np.array(loss)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()
@@ -608,11 +687,12 @@ def _llama(res, name, mesh, inputs, **loss_kw):
         res[f"{name}_grad.{key}"] = leaf.grad.numpy()
 
 
-def _roundtrip(res, name, mesh, inputs):
-    """shard_params then gather_params: every leaf back bit for bit, each
-    shard its contiguous block."""
-    params = params_from_numpy(inputs["params"], device=CPU)
-    specs = tsharding.shardings_for_tree(params, mesh)
+def _roundtrip(res, name, mesh, tree,
+               specs_for=tsharding.shardings_for_tree):
+    """shard_params then gather_params under ``specs_for(params, mesh)``:
+    every leaf back bit for bit, each shard its contiguous block."""
+    params = params_from_numpy(tree, device=CPU)
+    specs = specs_for(params, mesh)
     shards = tsharding.shard_params(params, mesh, specs)
     back = tsharding.gather_params(shards, mesh, specs)
     for key, leaf in tsharding.tree_paths(back):
@@ -621,16 +701,25 @@ def _roundtrip(res, name, mesh, inputs):
         sum(t.numel() for _, t in tsharding.tree_paths(shards)))
 
 
-def _sharded_step(res, name, mesh, inputs, attn, model="llama", **loss_kw):
+def _sharded_step(res, name, mesh, inputs, attn, model="llama",
+                  microbatches=None, **loss_kw):
     """A small Llama's (or, with ``model="mixtral"``, a small Mixtral's)
-    shards through sharded_loss_fn, the gradients completed by
-    allreduce_grads, one AdamW step on the shards; the global loss,
-    gradients and updated parameters gathered, and whether each AdamW
-    moment has its shard's shape and its parameter's spec."""
+    shards through sharded_loss_fn, or with ``model="pipeline"`` the
+    pipelined Llama's through make_pipelined_loss in ``microbatches``, the
+    gradients completed by allreduce_grads, one AdamW step on the shards;
+    the global loss, gradients and updated parameters gathered, whether
+    each AdamW moment has its shard's shape and its parameter's spec, and
+    for the pipeline the mesh's traffic of the loss and its backward."""
+    tokens = torch.from_numpy(inputs["shard_tokens"])
     if model == "mixtral":
         cfg = tmix.MixtralConfig(**MCFG, dtype=torch.float32)
         params = params_from_numpy(inputs["mparams"], device=CPU)
         specs = tmix.mixtral_shardings(params, mesh)
+    elif model == "pipeline":
+        cfg = tllama.LlamaConfig(**PCFG, dtype=torch.float32)
+        params = params_from_numpy(inputs["pparams"], device=CPU)
+        specs = tpipe.pipelined_specs(params, mesh)
+        tokens = torch.from_numpy(inputs["pipe_tokens"])
     else:
         cfg = tllama.LlamaConfig(**TCFG, dtype=torch.float32)
         params = params_from_numpy(inputs["params"], device=CPU)
@@ -638,10 +727,17 @@ def _sharded_step(res, name, mesh, inputs, attn, model="llama", **loss_kw):
     shards = tsharding.shard_params(params, mesh, specs)
     leaves = trainable(shards)
     opt = torch.optim.AdamW(leaves, betas=(0.9, 0.999), eps=1e-8, **ADAMW)
-    share = ttrain.sharded_loss_fn(
-        shards, torch.from_numpy(inputs["shard_tokens"]), cfg, mesh,
-        attn_impl=attn, specs=specs, **loss_kw)
+    mesh.traffic.clear()
+    if model == "pipeline":
+        share = tpipe.make_pipelined_loss(mesh, cfg, microbatches)(
+            shards, tokens, specs)
+    else:
+        share = ttrain.sharded_loss_fn(shards, tokens, cfg, mesh,
+                                       attn_impl=attn, specs=specs, **loss_kw)
     share.backward()
+    if model == "pipeline":
+        res[f"{name}_traffic"] = np.array(
+            [mesh.traffic[k] for k in PIPE_TRAFFIC])
     ttrain.allreduce_grads(shards, mesh, specs)
     res[f"{name}_loss"] = collectives.allreduce(
         share.detach(), mesh, ttrain.SPLIT_AXES).numpy()
@@ -761,6 +857,7 @@ def gloo_results(tmp_path_factory):
         "mparams": jax.tree_util.tree_map(
             np.asarray, jmix.init_params(mcfg, jax.random.PRNGKey(2))),
     }
+    inputs["pparams"], inputs["pipe_tokens"] = _pipe_inputs()
     tmp = tmp_path_factory.mktemp("gloo")
     mp.spawn(_child, args=(str(tmp / "store"), str(tmp), inputs),
              nprocs=WORLD, join=True)
@@ -959,6 +1056,47 @@ def _jax_mixtral_step(cpu_mesh8, inputs, spec):
     return _JAX_REFS[key]
 
 
+def _jax_pipelined_step(cpu_mesh8, pparams, tokens, spec, microbatches):
+    """JAX's make_pipelined_loss (remat, flash_attention) under a mesh of
+    ``spec``'s shape, its tree placed by pipeline_shardings and
+    shardings_for_tree as JAX's tests place it: the loss, the gradients
+    and the parameters after one optax.adamw step."""
+    key = ("pipeline", tuple(sorted(spec.items())), microbatches)
+    if key in _JAX_REFS:
+        return _JAX_REFS[key]
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from ray_tpu.models import llama as jllama
+    from ray_tpu.parallel import MeshSpec as JMeshSpec
+    from ray_tpu.parallel import make_mesh as jmake_mesh
+    from ray_tpu.parallel import (make_pipelined_loss, pipeline_shardings,
+                                  shardings_for_tree)
+
+    jcfg = jllama.LlamaConfig(**PCFG, dtype=jnp.float32)
+    mesh = jmake_mesh(JMeshSpec(**spec), devices=cpu_mesh8[:WORLD])
+    params = jax.tree_util.tree_map(jnp.asarray, pparams)
+    sh = {k: shardings_for_tree(v, mesh) for k, v in params.items()
+          if k != "stacked"}
+    sh["stacked"] = pipeline_shardings(params["stacked"], mesh)
+    params = jax.tree_util.tree_map(jax.device_put, params, sh)
+    loss_fn = make_pipelined_loss(mesh, jcfg, microbatches)
+    opt = optax.adamw(ADAMW["lr"], weight_decay=ADAMW["weight_decay"])
+
+    @jax.jit
+    def step(params):
+        loss, grads = jax.value_and_grad(lambda p: loss_fn(
+            p, {"tokens": jnp.asarray(tokens)}))(params)
+        updates, _ = opt.update(grads, opt.init(params), params)
+        return loss, grads, optax.apply_updates(params, updates)
+
+    loss, grads, after = step(params)
+    _JAX_REFS[key] = (float(loss),
+                      {k: np.asarray(v) for k, v in _flat(grads).items()},
+                      {k: np.asarray(v) for k, v in _flat(after).items()})
+    return _JAX_REFS[key]
+
+
 def _rank_tree(res, prefix):
     """A rank's flat leaves saved under ``prefix`` (``/``-joined paths), in
     ``_flat``'s ``.``-joined keys."""
@@ -968,7 +1106,8 @@ def _rank_tree(res, prefix):
 
 SHARDED_CASES = [(name, variant) for name in SHARDED
                  for variant in ("", "_remat_chunked")] + \
-    [("tp2sp2", "_ulysses")] + [(name, "_mixtral") for name in EP_MESHES]
+    [("tp2sp2", "_ulysses")] + [(name, "_mixtral") for name in EP_MESHES] + \
+    [(name, "_pipeline") for name in PIPE]
 
 
 @pytest.mark.parametrize("name,variant", SHARDED_CASES)
@@ -976,18 +1115,25 @@ def test_gloo_sharded_step_matches_jax(gloo_results, cpu_mesh8, name,
                                        variant):
     """FSDP/TP: a small Llama's shards on each mesh, the ring (flash block
     step) or Ulysses as its attention, dense or with remat and the chunked
-    loss; and EP (``_mixtral``): a small Mixtral's shards on each
-    expert-parallel mesh, its MoE through make_ep_moe_ffn, remat on:
-    every rank's global loss, every gathered gradient and every
-    gathered parameter after one AdamW step against JAX's under a mesh of
-    the same shape; the global gradient norm from the shards is the norm
-    of JAX's gradients; AdamW's moments carry their shard's shape and
-    their parameter's spec."""
+    loss; EP (``_mixtral``): a small Mixtral's shards on each
+    expert-parallel mesh, its MoE through make_ep_moe_ffn, remat on; and
+    PP (``_pipeline``): the 4-layer Llama's pipelined shards on each pp
+    mesh through make_pipelined_loss (remat, flash_attention): every
+    rank's global loss, every gathered gradient and every gathered
+    parameter after one AdamW step against JAX's under a mesh of the same
+    shape; the global gradient norm from the shards is the norm of JAX's
+    gradients; AdamW's moments carry their shard's shape and their
+    parameter's spec."""
     inputs, results = gloo_results
     tag = name + variant
+    start = {"_mixtral": inputs["mparams"],
+             "_pipeline": inputs["pparams"]}.get(variant)
     if variant == "_mixtral":
         want_loss, want_grads, want_params = _jax_mixtral_step(
             cpu_mesh8, inputs, EP_MESHES[name])
+    elif variant == "_pipeline":
+        want_loss, want_grads, want_params = _jax_pipelined_step(
+            cpu_mesh8, inputs["pparams"], inputs["pipe_tokens"], *PIPE[name])
     else:
         want_loss, want_grads, want_params = _jax_sharded_step(
             cpu_mesh8, inputs, SHARDED[name],
@@ -995,7 +1141,8 @@ def test_gloo_sharded_step_matches_jax(gloo_results, cpu_mesh8, name,
             CHUNK if variant == "_remat_chunked" else 0)
     want_norm = np.sqrt(sum(np.square(g.astype(np.float64)).sum()
                             for g in want_grads.values()))
-    start = {k: np.asarray(v) for k, v in _flat(inputs["mparams"]).items()}
+    if start is not None:
+        start = {k: np.asarray(v) for k, v in _flat(start).items()}
     for r, res in enumerate(results):
         np.testing.assert_allclose(res[f"{tag}_loss"], want_loss,
                                    **VALUE_TOL, err_msg=f"rank {r}")
@@ -1009,7 +1156,7 @@ def test_gloo_sharded_step_matches_jax(gloo_results, cpu_mesh8, name,
             if what == "grad":
                 grads = got
             for key, w in want.items():
-                if what == "param" and variant == "_mixtral":
+                if what == "param" and start is not None:
                     _hold_adamw_step(got[key], w, want_grads[key],
                                      start[key], grads[key],
                                      f"rank {r} {key}")
@@ -1067,8 +1214,100 @@ def test_gloo_dryrun_rank_matches_loss_fn(gloo_results):
     with torch.no_grad():
         want = tllama.loss_fn(params, {"tokens": tokens}, tdryrun.DRYRUN_CFG)
     for r, res in enumerate(results):
-        np.testing.assert_allclose(res["dryrun_loss"], want.item(),
+        np.testing.assert_allclose(res["dryrun_sharded_loss"], want.item(),
                                    **VALUE_TOL, err_msg=f"rank {r}")
+
+
+def test_gloo_dryrun_pipeline_part_matches_loss_fn(gloo_results):
+    """The dryrun's pipeline part (pp=2 x tp=2, two microbatches, remat,
+    one AdamW step) gives, on every rank, loss_fn's loss of the same
+    weights, unstacked, and tokens on one device."""
+    _, results = gloo_results
+    spec = tdryrun.pipeline_spec(WORLD)
+    assert (spec.pp, spec.tp, spec.dp) == (2, 2, 1)
+    params, tokens = tdryrun.pipeline_inputs(spec, CPU)
+    params["layers"] = tpipe.unstack_layers(params.pop("stacked"))
+    with torch.no_grad():
+        want = tllama.loss_fn(params, {"tokens": tokens}, tdryrun.DRYRUN_CFG)
+    for r, res in enumerate(results):
+        np.testing.assert_allclose(res["dryrun_pipeline_loss"], want.item(),
+                                   **VALUE_TOL, err_msg=f"rank {r}")
+
+
+def test_gloo_dryrun_moe_part_matches_the_dense_moe(gloo_results):
+    """The dryrun's MoE part (ep=2 x tp=2, make_ep_moe_ffn at capacity
+    factor 4.0, which drops nothing) gives, on every rank, the dense MoE's
+    loss on one device: the CE of the whole batch plus aux_coef times the
+    mean over the two token shards of each shard's aux."""
+    _, results = gloo_results
+    spec = tdryrun.moe_spec(WORLD)
+    assert (spec.ep, spec.tp, spec.dp) == (2, 2, 1)
+    cfg = tdryrun.moe_cfg()
+    params, tokens = tdryrun.moe_inputs(spec, CPU)
+    ce, count, aux = 0.0, 0.0, 0.0
+    with torch.no_grad():
+        for rows in tokens.chunk(spec.ep):
+            logits, a = tmix.forward(params, rows, cfg)
+            mean, n = tlayers.cross_entropy_loss(
+                logits, tllama.next_token_targets(rows))
+            ce, count, aux = ce + mean * n, count + n, aux + a
+    want = ce / count + cfg.aux_coef * aux / spec.ep
+    for r, res in enumerate(results):
+        np.testing.assert_allclose(res["dryrun_moe_loss"], want.item(),
+                                   **VALUE_TOL, err_msg=f"rank {r}")
+
+
+@pytest.mark.parametrize("name", PIPE)
+def test_gloo_pipeline_shard_then_gather_is_exact(gloo_results, name):
+    """Under pipelined_specs gather_params inverts shard_params bit for
+    bit, and each rank holds each leaf's block: the stacked layers cut
+    over pp (and fsdp and tp where their rules split them), the embedding
+    and head over fsdp and tp."""
+    inputs, results = gloo_results
+    want = {k: np.asarray(v) for k, v in _flat(inputs["pparams"]).items()}
+    sizes, _ = PIPE[name]
+    specs = tpipe.pipelined_specs(params_from_numpy(inputs["pparams"], CPU),
+                                  make_mesh(MeshSpec(**sizes), device=CPU))
+    split = {k.replace("/", "."): int(np.prod([sizes.get(a, 1) for a in
+                                               tsharding.spec_axes(sp)]))
+             for k, sp in tsharding.tree_paths(specs)}
+    for r, res in enumerate(results):
+        got = _rank_tree(res, f"{name}_roundtrip.")
+        assert got.keys() == want.keys()
+        for key, w in want.items():
+            np.testing.assert_array_equal(got[key], w,
+                                          err_msg=f"rank {r} {key}")
+        assert res[f"{name}_shard_elems"] == sum(
+            w.size // split[k] for k, w in want.items())
+
+
+@pytest.mark.parametrize("name", PIPE)
+def test_gloo_pipeline_hops_and_gathers_once_a_step(gloo_results, name):
+    """A rank's traffic in the pipelined loss and its backward: M + S - 1
+    hops of a microbatch's activations forward and M + S - 2 back (the
+    last tick's hop is never used), and each FSDP-split leaf gathered once
+    and reduce-scattered once, whatever the count of ticks."""
+    inputs, results = gloo_results
+    sizes, M = PIPE[name]
+    S = sizes["pp"]
+    B, L = PIPE_TOKENS
+    rows = B // sizes.get("fsdp", 1) // M
+    hop = rows * L * PCFG["d_model"] * 4
+    specs = tpipe.pipelined_specs(params_from_numpy(inputs["pparams"], CPU),
+                                  make_mesh(MeshSpec(**sizes), device=CPU))
+    flat = {k.replace("/", "."): sp for k, sp in tsharding.tree_paths(specs)}
+    gathered = [k for k, sp in flat.items()
+                if "fsdp" in tsharding.spec_axes(sp) and sizes.get("fsdp")]
+    shard_bytes = sum(
+        np.asarray(v).size * 4 // int(np.prod(
+            [sizes.get(a, 1) for a in tsharding.spec_axes(flat[k])]))
+        for k, v in _flat(inputs["pparams"]).items() if k in gathered)
+    hops = 2 * (M + S) - 3
+    want = [hops, hops * hop, len(gathered), shard_bytes, len(gathered),
+            shard_bytes * sizes.get("fsdp", 1)]
+    for r, res in enumerate(results):
+        np.testing.assert_array_equal(res[f"{name}_pipeline_traffic"], want,
+                                      err_msg=f"rank {r}: {PIPE_TRAFFIC}")
 
 
 def test_gloo_vocab_split_losses_match_jax(gloo_results):
