@@ -17,7 +17,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
      with its time, the plain version's, that of torch's
      scaled_dot_product_attention (a yardstick only; the port never calls
      it) and the least time the card could take; at the prefill shape
-     also the kernel's and sdpa's device time from torch.profiler;
+     also the kernel's and sdpa's device time (device_ms);
   3. a small fp32 model on the card: logits through the kernel against the
      plain path on the CPU, and engine tokens against generate_greedy; the
      paged engine's tokens against generate_greedy (a roomy pool and one
@@ -77,7 +77,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
      see no key must give m == NEG_INF. With its time, the plain
      version's, the bound and torch's flash attention with its row
      log-sum-exp (a yardstick only; the port never calls it), and for
-     every key visible both device times from torch.profiler;
+     every key visible both device times (device_ms);
  10. a small fp32 model: the loss and every gradient through the sp = 4
      ring (flash block step) on the card, against the same on the CPU
      through the plain versions and against the card's flash_attention;
@@ -156,11 +156,28 @@ Phases, each of which raises on failure (the exit code is then not 0):
      first loss and whole gradient norm within 1e-2 of phase 8's dense
      run and each group's norm (embedding, final norm, head, each stage's
      layers) within GROUP_RTOL; ms per step beside phase 8's, the
-     bubble's share, peak memory.
+     bubble's share, peak memory;
+ 17. the runtime's trainer: ray_tpu_torch.init(num_cpus=4, num_gpus=1),
+     then TorchTrainer trains LLAMA3_1B at full width and depth (phase
+     8's weights and tokens, the tokens through ray_tpu_torch.put) in
+     worker actors the runtime pins to the card: (a) one worker, 3 steps
+     with a checkpoint of the parameters and AdamW state after step 2,
+     each loss held to phase 8's within RUNTIME_LOSS_RTOL and K2's
+     launches to phase 8's rate, get_gpu_ids() == ["0"]; (b) the same
+     with a planted exit just after step 2's checkpoint and
+     FailureConfig(max_failures=1), step 3 held to (a)'s bit for bit;
+     (c) two workers at num_gpus=0.5 on gloo, half the batch each,
+     gradients summed by allreduce_grads, 1 + 1 steps, the first loss
+     and gradient norm within 1e-2 of (a)'s (phase 12's rules) and
+     within RUNTIME_DP_LOSS_RTOL and RUNTIME_DP_NORM_RTOL, both
+     pinned to the card. Worker start, fit() to the first report,
+     ms/step against phase 8's, the checkpoint's GB and seconds, the
+     restart's seconds and the workers' peak memory are printed; the
+     cluster is shut down at the end, failures included.
 Phases 2 and 6 also hold the kernels at ViT's call (128, 197, 12/12, 64,
 non-causal), phase 2 at each of phase 13's prefills (1, L, 32/8, 128)
 and phase 6 at an ep rank's (1, 2048, 32/8, 128). Phases run
-in the order 1-5, 13, 6-8, 16, 9-11, 14, 12, 15.
+in the order 1-5, 13, 6-8, 16, 9-11, 14, 12, 15, 17.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -283,12 +300,13 @@ LEAD_IN_CYCLES = 20_000_000
 LEAD_IN_KERNEL = "spin_kernel"
 
 
-def device_profile(fn, reps: int):
+def device_profile(fn, reps: int, pad_s: float = 0.0):
     """Run ``fn`` ``reps`` times under torch.profiler; returns the device
     time per rep in ms and the kernels as (ms per rep, calls per rep, name),
     longest first. Ranges that code annotates on the device's timeline
     (``Optimizer.step#AdamW.step``) cover kernels listed on their own and
-    are left out."""
+    are left out. ``pad_s`` of idle host time more stands before and after
+    the recorded calls (see PROFILE_RETRY_S)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -305,19 +323,24 @@ def device_profile(fn, reps: int):
         fn()
         torch.cuda.synchronize()
         prof.step()
-        time.sleep(0.05)
+        time.sleep(0.05 + pad_s)
         torch.cuda._sleep(LEAD_IN_CYCLES)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(pad_s)
         prof.step()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     kernels = sorted(((e.self_device_time_total / reps / 1e3,
                        e.count / reps, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and not getattr(e, "is_user_annotation", False)
-                      and LEAD_IN_KERNEL not in e.key),
+                      for e in device if LEAD_IN_KERNEL not in e.key),
                      reverse=True)
+    if not kernels:
+        log(f"profiler window with a pad of {pad_s} s held no recorded "
+            f"kernel; its lead-in kernel was "
+            f"{'traced' if device else 'not traced either'}")
     return sum(k[0] for k in kernels), kernels
 
 
@@ -335,28 +358,60 @@ def _two_windows(measure, what: str):
 
 # Windows a reading may take before it raises. Even with the warm-up call
 # and the wait, a window has been seen to lose kernels now and then (all
-# of five backward calls but the last dQ, once in a whole run); each
-# window is held to the same test, so a short one never gives a reading.
-PROFILE_TRIES = 3
+# of five backward calls but the last dQ, once in a whole run), to lose
+# the first kernels of window after window on some machines (pads up to
+# 1 s, whole at 2 s), and, minutes into the run, to hold no kernel at all
+# window after window (phase 9's first readings, in four whole runs of
+# eight). One explanation, not confirmed: the trace keeps only what falls
+# inside its window by the host's clock, so a short window loses its
+# kernels once the device's timestamps have drifted from it by more than
+# the idle time around them. So each retry doubles a pad of idle host time
+# around the recorded calls, from PROFILE_RETRY_S.
+PROFILE_TRIES = 8
+PROFILE_RETRY_S = 0.25
+# Lead-ins device_ms may try, each four times the last, from
+# LEAD_IN_CYCLES.
+QUEUE_TRIES = 4
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn``: its kernels' time under
-    torch.profiler, without the host's gaps between launches that CUDA
-    events around a run of short calls also count; the longer of two
-    windows (``_two_windows``). A window traced without kernels is
-    profiled again, up to PROFILE_TRIES windows; if every one is empty it
-    raises."""
-    def measure():
-        for _ in range(PROFILE_TRIES):
-            busy, kernels = device_profile(fn, reps)
-            if kernels:
-                return (busy,)
-            log("profiler trace has no kernels; profiling again")
-        raise AssertionError(f"profiler traced no kernel {PROFILE_TRIES} "
-                             f"times running")
-
-    return _two_windows(measure, "the device time")[0]
+def device_ms(fn, reps: int, floor_ms: float = 0.0):
+    """Device time per call of ``fn``, without the host's gaps between
+    launches that CUDA events around a run of short calls also count:
+    the ``reps`` calls are queued behind a spin kernel (the lead-in), and
+    CUDA events after the lead-in and after the last call time them. A
+    reading counts only if the lead-in was still running when the host
+    had queued every call (the start event not yet reached), so the card
+    ran them back to back; otherwise the lead-in is made four times
+    longer, up to QUEUE_TRIES readings, and then the reading is None ("not
+    measured": a call that waits on the card itself cannot be queued).
+    No profiler window is involved, so no kernel can be left out. A
+    reading below ``floor_ms``, the call's roofline bound where it has
+    one, cannot be right and raises."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = LEAD_IN_CYCLES
+    for _ in range(QUEUE_TRIES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_ahead = not start.query()
+        torch.cuda.synchronize()
+        if queued_ahead:
+            ms = start.elapsed_time(end) / reps
+            if not ms >= floor_ms:
+                raise AssertionError(f"device time {ms} ms per call, below "
+                                     f"its bound {floor_ms} ms")
+            return ms
+        log(f"the card reached the calls before the host had queued them "
+            f"all behind a lead-in of {cycles} cycles; lengthening it")
+        cycles *= 4
+    log(f"device time not measured: {reps} calls could not be queued "
+        f"ahead of the card")
+    return None
 
 
 def profiled_kernels_ms(fn, reps: int, names):
@@ -372,13 +427,16 @@ def profiled_kernels_ms(fn, reps: int, names):
                 for name in names]
 
     def measure():
+        pad = 0.0
         for _ in range(PROFILE_TRIES):
-            _, kernels = device_profile(fn, reps)
+            _, kernels = device_profile(fn, reps, pad)
             if launches(kernels) == [reps] * len(names):
                 return tuple(kernel_ms(kernels, n) for n in names)
-            log(f"profiler trace shows {launches(kernels)} launches of "
-                f"{names} in {reps} calls; profiling again. Its kernels:")
+            log(f"profiler trace with a pad of {pad} s shows "
+                f"{launches(kernels)} launches of {names} in {reps} calls; "
+                f"profiling again. Its kernels:")
             log_top(kernels, 12)
+            pad = max(PROFILE_RETRY_S, 2 * pad)
         raise AssertionError(
             f"profiler trace shows {launches(kernels)} launches of {names} "
             f"in {reps} calls, {PROFILE_TRIES} windows running")
@@ -524,10 +582,12 @@ def check_kernel(attention, gen):
                    bound_by=bound_by)
         if L == 1024:  # the prefill of the serving main path
             row["device_ms"] = device_ms(
-                lambda: attention.flash_attention(q, k, v, causal), 20)
+                lambda: attention.flash_attention(q, k, v, causal), 20,
+                bound_ms)
             row["library_device_ms"] = device_ms(
                 lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), 20,
+                bound_ms)
         rows.append(row)
         log("kernel_check", json.dumps(row))
     # fp32 inputs take the same kernel in its fp32 instantiation.
@@ -1200,17 +1260,18 @@ def serve_mixtral(models, attention):
                                     for layer in params["layers"]], 5)
     weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     bound_ms = weights / H100_BYTES_PER_S * 1e3
+    moe_share = None if moe_ms is None or not busy_ms else moe_ms / busy_ms
     log(f"Mixtral decode [1, 1] at {L} tokens of context: {step_ms} ms/step "
         f"(bound {bound_ms} ms: {weights / 1e9} GB of weights at "
         f"{H100_BYTES_PER_S / 1e12} TB/s); the device ran {busy_ms} ms, "
         f"{busy_ms / step_ms} of the step; the MoE of its {cfg.n_layers} "
-        f"layers {moe_ms} ms of device time, {moe_ms / busy_ms} of it; "
+        f"layers {moe_ms} ms of device time, {moe_share} of it; "
         f"prefill [1, {L}] {prefill_ms} ms")
     log_top(kernels)
     out = dict(launches=counts["launches"], seconds=secs, peak_gib=peak /
                2**30, agreement=agree, prefill_ms=prefill_ms,
                decode_ms=step_ms, decode_busy_share=busy_ms / step_ms,
-               moe_share=moe_ms / busy_ms, decode_bound_ms=bound_ms,
+               moe_share=moe_share, decode_bound_ms=bound_ms,
                planted_fault=refusal)
     del params, caches, logits
     gc.collect()
@@ -1289,8 +1350,12 @@ def check_bwd(attention, gen):
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{where}: two backward calls differ")
+        whole, dkdv, dq = bwd_bounds(B, L, H, Hkv, D, causal)
+        row["bound_ms"], row["bound_by"] = whole
+        row["dkdv_bound_ms"], row["dkdv_bound_by"] = dkdv
+        row["dq_bound_ms"], row["dq_bound_by"] = dq
         row["bwd_ms"] = time_ms(bwd, 10)
-        row["bwd_device_ms"] = device_ms(bwd, 5)
+        row["bwd_device_ms"] = device_ms(bwd, 5, row["bound_ms"])
         row["dkdv_ms"], row["dq_ms"] = profiled_kernels_ms(
             bwd, 5, ("flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel"))
         row["di_ms"] = time_ms(lambda: attention.bwd_di(o, do), 10)
@@ -1316,12 +1381,9 @@ def check_bwd(attention, gen):
         graph = sdpa()
         row["library_device_ms"] = device_ms(
             lambda: torch.autograd.grad(graph, (qt, kt, vt), dot,
-                                        retain_graph=True), 5)
+                                        retain_graph=True), 5,
+            row["bound_ms"])
         del graph
-        whole, dkdv, dq = bwd_bounds(B, L, H, Hkv, D, causal)
-        row["bound_ms"], row["bound_by"] = whole
-        row["dkdv_bound_ms"], row["dkdv_bound_by"] = dkdv
-        row["dq_bound_ms"], row["dq_bound_by"] = dq
         if not rows:  # the forward with lse at the training shape
             row["fwd_ms"] = time_ms(
                 lambda: attention.flash_attention_fwd(q, k, v, causal), 10)
@@ -1334,11 +1396,13 @@ def check_bwd(attention, gen):
                     is_causal=causal, enable_gqa=True)
 
             row["fwd_library_ms"] = time_ms(sdpa_fwd, 10)
-            row["fwd_device_ms"] = device_ms(
-                lambda: attention.flash_attention_fwd(q, k, v, causal), 10)
-            row["fwd_library_device_ms"] = device_ms(sdpa_fwd, 10)
             row["fwd_bound_ms"], row["fwd_bound_by"] = attention_bound(
                 B, L, H, Hkv, D, causal)
+            row["fwd_device_ms"] = device_ms(
+                lambda: attention.flash_attention_fwd(q, k, v, causal), 10,
+                row["fwd_bound_ms"])
+            row["fwd_library_device_ms"] = device_ms(sdpa_fwd, 10,
+                                                     row["fwd_bound_ms"])
         rows.append(row)
         log("bwd_check", json.dumps(row))
     # fp32 inputs take the fp32 instantiations; q is a slice of a wider
@@ -1506,8 +1570,9 @@ def _stats_case(attention, q, k, v, vis, name):
                bound_by=bound_by)
     if name == "all":  # the ring's full blocks
         row["device_ms"] = device_ms(
-            lambda: attention.flash_attention_stats(q, k, v, vis), 10)
-        row["library_device_ms"] = device_ms(library, 10)
+            lambda: attention.flash_attention_stats(q, k, v, vis), 10,
+            bound_ms)
+        row["library_device_ms"] = device_ms(library, 10, bound_ms)
     log("stats_check", json.dumps(row))
     return row
 
@@ -1852,11 +1917,16 @@ def train_run(models, attention, cfg, tokens, seed, warm, timed, remat,
         out["group_sq"] = group_sq[0]
     if profile:
         busy_ms, kernels = device_profile(step, 1)
-        log(f"train profile {name}: the device ran {busy_ms} ms in one "
-            f"step, {busy_ms / 1e3 / step_s} of the unprofiled step, in "
-            f"{sum(n for _, n, _ in kernels)} kernels")
-        log_top(kernels)
-        out["busy_share"] = busy_ms / 1e3 / step_s
+        if not kernels:
+            # a window the profiler left empty is no reading of 0 ms
+            log(f"train profile {name}: the profiler traced no kernel; "
+                f"busy share not measured")
+        else:
+            log(f"train profile {name}: the device ran {busy_ms} ms in "
+                f"one step, {busy_ms / 1e3 / step_s} of the unprofiled "
+                f"step, in {sum(n for _, n, _ in kernels)} kernels")
+            log_top(kernels)
+            out["busy_share"] = busy_ms / 1e3 / step_s
     del params, leaves, opt, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2806,6 +2876,282 @@ async def serve_requests(server, requests):
     return await asyncio.gather(*[one(b) for b in requests])
 
 
+# Phase 17: the runtime's trainer. LLAMA3_1B is trained by
+# ray_tpu_torch.train.TorchTrainer in worker actors that the runtime pins
+# to the card, from phase 8's weights (seed 7) and tokens, through K2.
+RUNTIME_STEPS = 3
+# (a)'s losses against phase 8's in-process run on the same card and
+# kernels (no atomics): the same function of the same bits.
+RUNTIME_LOSS_RTOL = 1e-6
+# (c)'s first loss and gradient norm against (a)'s: phase 12's 1e-2, and
+# within it the gaps predicted before the first run for two halves of the
+# batch whose gradients gloo sums in fp32. Both ranks on one half would
+# miss them.
+RUNTIME_DP_LOSS_RTOL = 1e-5
+RUNTIME_DP_NORM_RTOL = 1e-4
+
+
+def runtime_loop(cfg):
+    """The worker's loop (shipped by value): phase 8's dense step on the
+    worker's own card, or on a gloo mesh over ``dp`` (each rank a half of
+    the batch, gradients summed by allreduce_grads); a checkpoint of the
+    parameters and AdamW state after step ``checkpoint_after``; with
+    ``die_after``, an exit just after that step on the first attempt."""
+    import os
+    import time
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import models, parallel, train
+    from ray_tpu_torch.ops import attention
+
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    mcfg = models.LLAMA3_1B
+    gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
+    params = models.init_params(mcfg, gen, device="cuda")
+    leaves = models.trainable(params)
+    opt = torch.optim.AdamW(leaves, lr=cfg["lr"], betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.1)
+    tokens = ray_tpu_torch.get(cfg["tokens"]).to("cuda")
+    mesh = None
+    if world > 1:
+        mesh = parallel.make_mesh(parallel.MeshSpec(dp=world),
+                                  device="cuda", backend="gloo")
+    hist = {"losses": [], "grad_norms": [], "step_s": [], "report_t": [],
+            "enter_t": [t_enter], "restore_s": None, "save_s": None,
+            "ckpt_bytes": None}
+    start = 0
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        state = train.load_pytree(ckpt.path, device="cuda")
+        with torch.no_grad():
+            for t, saved in zip(leaves, state["leaves"]):
+                t.copy_(saved)
+        opt.load_state_dict(state["opt"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        hist, start = state["hist"], state["step"]
+        hist["enter_t"].append(t_enter)
+        # when the first attempt's checkpoint was complete (its file's
+        # last write), for the restart's time
+        state_file = os.path.join(ckpt.path, "state.pt")
+        hist["saved_t"] = os.path.getmtime(state_file)
+        hist["ckpt_bytes"] = os.path.getsize(state_file)
+        hist["restore_s"] = restore_s
+        del state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in cfg["counters"]:
+        setattr(attention, c, 0)
+    for step in range(start, cfg["steps"]):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        if mesh is None:
+            loss = models.loss_fn(params, {"tokens": tokens}, mcfg,
+                                  attn_impl=None, remat=False)
+            loss.backward()
+            total = loss.detach()
+        else:
+            loss = parallel.sharded_loss_fn(params, tokens, mcfg, mesh)
+            loss.backward()
+            parallel.allreduce_grads(leaves, mesh)
+            total = parallel.collectives.allreduce(loss.detach(), mesh)
+        if step == 0:
+            # the first step's gradient norm, where phase 8 takes it (it
+            # reads every gradient once more, so no later step does)
+            norm = (parallel.global_grad_norm(leaves, mesh) if mesh else
+                    torch.stack([t.grad.float().square().sum()
+                                 for t in leaves]).sum().sqrt())
+            hist["grad_norms"].append(float(norm))
+        opt.step()
+        torch.cuda.synchronize()
+        hist["step_s"].append(time.perf_counter() - t0)
+        hist["losses"].append(float(total))
+        hist["report_t"].append(time.time())
+        checkpoint = None
+        if step + 1 == cfg["checkpoint_after"]:
+            path = os.path.join(ctx.get_storage_path(), ctx.get_trial_name(),
+                                f"checkpoint_{step:06d}")
+            t0 = time.perf_counter()
+            hist["ckpt_bytes"] = train.save_pytree(
+                {"leaves": [t.detach() for t in leaves],
+                 "opt": opt.state_dict(), "hist": hist, "step": step + 1},
+                path)
+            hist["save_s"] = time.perf_counter() - t0
+            checkpoint = train.Checkpoint(path)
+        train.report({
+            **hist, "rank": rank, "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device": torch.cuda.get_device_name(0),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            **{c: getattr(attention, c) for c in cfg["counters"]}},
+            checkpoint=checkpoint)
+        if cfg["die_after"] == step + 1 and ckpt is None:
+            os._exit(1)  # the planted death, first attempt only
+
+
+def _session_log_tails(lines: int = 40) -> str:
+    """The last lines of the port's session logs, for a failed phase 17."""
+    import glob
+
+    root = os.environ.get("RAY_TPU_TORCH_TMPDIR", "")
+    out = []
+    for path in sorted(glob.glob(os.path.join(root, "session_*", "*.out"))):
+        with open(path, errors="replace") as f:
+            tail = f.read().splitlines()[-lines:]
+        out.append(f"--- {path}\n" + "\n".join(tail))
+    return "\n".join(out)
+
+
+def runtime_training(tokens, dense):
+    """Phase 17: ray_tpu_torch.init(num_cpus=4, num_gpus=1), then
+    TorchTrainer runs (a) one worker with the card, 3 steps with a
+    checkpoint after step 2, held to phase 8's losses and launches; (b)
+    the same with a planted exit after step 2's checkpoint and
+    FailureConfig(max_failures=1), step 3 held to (a)'s bit for bit; (c)
+    two workers at num_gpus=0.5 on gloo, 1 + 1 steps, held to (a)'s first
+    loss and gradient norm by phase 12's rules. The cluster is shut down
+    at the end, failures included."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+
+    os.environ.setdefault("RAY_TPU_TORCH_TMPDIR",
+                          tempfile.mkdtemp(prefix="rtt"))
+    storage = tempfile.mkdtemp(prefix="rtt_runs")
+    per_step = {c: dense[c] // 6 for c in COUNTERS}
+    out = {}
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    try:
+        log(f"phase 17: cluster up in {time.perf_counter() - t0} s: "
+            f"{ray_tpu_torch.cluster_resources()}")
+        base = {"seed": 7, "lr": LR, "tokens": ray_tpu_torch.put(
+            tokens.cpu()), "steps": RUNTIME_STEPS, "checkpoint_after": 2,
+            "die_after": 0, "counters": COUNTERS}
+
+        def fit(name, workers, share, backend=None, failures=0, **kw):
+            trainer = train.TorchTrainer(
+                runtime_loop, train_loop_config={**base, **kw},
+                scaling_config=train.ScalingConfig(
+                    num_workers=workers, use_gpu=True,
+                    gpus_per_worker=share),
+                run_config=train.RunConfig(
+                    name=name, storage_path=storage,
+                    failure_config=train.FailureConfig(
+                        max_failures=failures)),
+                torch_backend=backend)
+            t_fit = time.time()
+            result = trainer.fit()
+            if result.error is not None:
+                raise AssertionError(f"phase 17 {name}: {result.error}")
+            ranks = result.metrics_all_workers
+            m = ranks[0]
+            log(f"phase 17 {name}: worker start {m['enter_t'][0] - t_fit}"
+                f" s after fit(), first report {m['report_t'][0] - t_fit} "
+                f"s after fit(); fit() took {time.time() - t_fit} s")
+            return result, ranks, t_fit
+
+        # (a) one worker with the card
+        result, ranks, _ = fit("one_gpu", 1, 1.0)
+        a = ranks[0]
+        want = dense["losses"][:RUNTIME_STEPS]
+        diff = [abs(x - w) / abs(w) for x, w in zip(a["losses"], want)]
+        log(f"phase 17 (a): losses {a['losses']}, phase 8's {want}, "
+            f"relative differences {diff}; gradient norm "
+            f"{a['grad_norms'][0]}, phase 8's {dense['grad_norm']}")
+        if not all(d <= RUNTIME_LOSS_RTOL for d in diff):
+            raise AssertionError(f"phase 17 (a): losses {a['losses']}, "
+                                 f"phase 8's {want}")
+        counts = {c: a[c] for c in COUNTERS}
+        expect = {c: per_step[c] * RUNTIME_STEPS for c in COUNTERS}
+        if counts != expect or not counts["launches"] or \
+                not counts["bwd_launches"]:
+            raise AssertionError(f"phase 17 (a): launches {counts}, phase "
+                                 f"8's rate gives {expect}")
+        if a["gpu_ids"] != ["0"] or a["visible"] != "0":
+            raise AssertionError(f"phase 17 (a): worker pinned to "
+                                 f"{a['gpu_ids']}, CUDA_VISIBLE_DEVICES "
+                                 f"{a['visible']!r}")
+        step_ms = [x * 1e3 for x in a["step_s"]]
+        log(f"phase 17 (a): launches {counts}; worker on {a['device']} "
+            f"pinned to {a['gpu_ids']} (CUDA_VISIBLE_DEVICES "
+            f"{a['visible']}); ms/step {step_ms} (steps 2-3 mean "
+            f"{sum(step_ms[1:]) / len(step_ms[1:])}) against phase 8's "
+            f"{dense['step_ms']}; checkpoint {a['ckpt_bytes'] / 1e9} GB "
+            f"written in {a['save_s']} s; peak memory {a['peak_gib']} GiB")
+        out["a"] = dict(a, step_ms=step_ms, **counts)
+        shutil.rmtree(os.path.join(storage, "one_gpu"), ignore_errors=True)
+
+        # (b) the restart from step 2's checkpoint
+        result, ranks, t_fit = fit("restart", 1, 1.0, failures=1,
+                                   die_after=2)
+        b = ranks[0]
+        if b["losses"] != a["losses"] or b["restore_s"] is None:
+            raise AssertionError(f"phase 17 (b): losses {b['losses']} "
+                                 f"after the restart, (a)'s {a['losses']}")
+        # from the end of step 2's checkpoint (the planted exit follows
+        # its report) to step 3's report on the restored worker
+        saved_t = b["saved_t"]
+        restart_s = b["report_t"][2] - saved_t
+        log(f"phase 17 (b): step 3's loss {b['losses'][2]} equals (a)'s "
+            f"{a['losses'][2]} bit for bit; the restart took {restart_s} s "
+            f"from step 2's checkpoint to step 3's report (the new worker "
+            f"entered its loop {b['enter_t'][1] - saved_t} s after the "
+            f"checkpoint, restored {b['ckpt_bytes'] / 1e9} GB in "
+            f"{b['restore_s']} s); checkpoint written in "
+            f"{saved_t - b['report_t'][1]} s")
+        out["b"] = dict(b, restart_s=restart_s)
+        shutil.rmtree(os.path.join(storage, "restart"), ignore_errors=True)
+
+        # (c) two workers sharing the card, gloo
+        result, ranks, _ = fit("two_half_gpus", 2, 0.5, backend="gloo",
+                               steps=2, checkpoint_after=0)
+        c0, c1 = ranks[0], ranks[1]
+        if sorted(r["rank"] for r in ranks.values()) != [0, 1] or \
+                c0["gpu_ids"] != ["0"] or c1["gpu_ids"] != ["0"] or \
+                c0["visible"] != c1["visible"]:
+            raise AssertionError(f"phase 17 (c): ranks {ranks}")
+        first, norm = c0["losses"][0], c0["grad_norms"][0]
+        loss_gap = abs(first - a["losses"][0]) / a["losses"][0]
+        norm_gap = abs(norm - a["grad_norms"][0]) / a["grad_norms"][0]
+        if c1["losses"] != c0["losses"] or \
+                not loss_gap <= min(1e-2, RUNTIME_DP_LOSS_RTOL) or \
+                not norm_gap <= min(1e-2, RUNTIME_DP_NORM_RTOL) or \
+                not c0["losses"][1] < first:
+            raise AssertionError(
+                f"phase 17 (c): losses {c0['losses']} / {c1['losses']}, "
+                f"norm {norm}; (a)'s {a['losses'][0]}, "
+                f"{a['grad_norms'][0]}; relative gaps {loss_gap} (limit "
+                f"{RUNTIME_DP_LOSS_RTOL}) and {norm_gap} (limit "
+                f"{RUNTIME_DP_NORM_RTOL})")
+        log(f"phase 17 (c): ranks 0 and 1 both pinned to {c0['gpu_ids']}; "
+            f"losses {c0['losses']} (first {first} against (a)'s "
+            f"{a['losses'][0]}, relative gap {loss_gap}, limit "
+            f"{RUNTIME_DP_LOSS_RTOL}), gradient norm {norm} against "
+            f"{a['grad_norms'][0]} (relative gap {norm_gap}, limit "
+            f"{RUNTIME_DP_NORM_RTOL}); ms/step "
+            f"{[x * 1e3 for x in c0['step_s']]}; peak memory "
+            f"{[r['peak_gib'] for r in ranks.values()]} GiB")
+        out["c"] = dict(c0)
+    except BaseException:
+        log(_session_log_tails())
+        raise
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    log(f"phase 17 done in {time.perf_counter() - t0} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3000,6 +3346,11 @@ def main() -> int:
     vit_train, vit_forward_launches, vit_forward_ms = train_vit(models,
                                                                 attention)
 
+    # Phase 17: the runtime's trainer, in worker actors pinned to the card.
+    gc.collect()
+    torch.cuda.empty_cache()
+    runtime = runtime_training(train_tokens, dense)["a"]
+
     def sharded_launches(counter):
         """Phase 12's launches of a counter: per rank by run, and in all."""
         by_run = {f"phase 12 {name}, per rank": [g[counter] for g in got]
@@ -3017,7 +3368,7 @@ def main() -> int:
                     + sum(r["bwd_launches"] for r in pipe_launches.values())
                     + k2["bwd_launches"] + uly["bwd_launches"]
                     + mixtral_train["bwd_launches"]
-                    + vit_train["bwd_launches"]
+                    + vit_train["bwd_launches"] + runtime["bwd_launches"]
                     + sharded_launches("bwd_launches")[1])
     mosaic = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [{
@@ -3030,7 +3381,8 @@ def main() -> int:
         + sum(r["launches"] for r in pipe_launches.values())
         + uly["launches"] + mixtral_serve["launches"]
         + mixtral_train["launches"] + vit_train["launches"]
-        + vit_forward_launches + sharded_launches("launches")[1],
+        + vit_forward_launches + runtime["launches"]
+        + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
                              "train_remat_chunked": remat["launches"],
@@ -3042,6 +3394,7 @@ def main() -> int:
                              "mixtral_train": mixtral_train["launches"],
                              "vit_train": vit_train["launches"],
                              "vit_forward": vit_forward_launches,
+                             "runtime_train_worker": runtime["launches"],
                              **sharded_launches("launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -3082,6 +3435,8 @@ def main() -> int:
                                  "mixtral_train":
                                      mixtral_train["bwd_launches"],
                                  "vit_train": vit_train["bwd_launches"],
+                                 "runtime_train_worker":
+                                     runtime["bwd_launches"],
                                  **sharded_launches("bwd_launches")[0]},
             "max_abs_err": max(r[g]["max_abs_err"] for r in bwd_rows
                                for g in (("dk", "dv") if name == "dkdv"

@@ -8,7 +8,7 @@ parallelism over the ``ep`` axis (``moe``), a step's loss and gradients
 over a split batch and sharded parameters (``training``), the GPipe
 schedule over the ``pp`` axis with TP and FSDP inside its stages
 (``pipeline``), the MPMD pipeline's stage math (``mpmd_pipeline``; its
-stage actors wait for the port's actors), and the sharded dryrun
+stage actors wait for the gang fault plane), and the sharded dryrun
 (``dryrun``)."""
 
 from . import collectives, moe, mpmd_pipeline

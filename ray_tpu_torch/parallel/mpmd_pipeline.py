@@ -11,7 +11,7 @@ next stage's actor; the stage math here is what such an actor computes.
 
 Not ported yet: ``PipelineStageActor``, ``MPMDPipeline`` and their gang
 and drain fault plane, which are built on the runtime's actors, compiled
-DAGs and GCS; they wait for the port's actors (``ROADMAP.md``, queue R).
+DAGs and GCS; they wait for the gang fault plane (``ROADMAP.md`` A9).
 The single-program pipeline over the ``pp`` axis is ``parallel.pipeline``.
 """
 

@@ -29,7 +29,7 @@ A stacked layer leaf of the pipelined tree (``parallel/pipeline.py``'s
 layers.
 
 Not ported here: ``stage_submesh`` (a stage's devices for the MPMD actor
-pipeline) waits for the port's actors.
+pipeline) waits for the gang fault plane (ROADMAP A9).
 ``constrain`` (a sharding hint inside ``jit``) has no eager counterpart:
 each rank's tensors already are its shards. ``apply_shardings`` is
 ``shard_params``.

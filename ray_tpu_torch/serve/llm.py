@@ -6,8 +6,8 @@ requests share every decode step through one engine pump. The engine is
 the dense-slot ``GenerationEngine`` or, with ``kv_cache="paged"``, the
 page-pool ``PagedEngine``; with a ``draft_factory``, requests that ask for
 ``{"speculative": true}`` run batch-1 speculative decoding beside it. What
-needs the runtime tier (a Serve deployment, the object plane) raises
-``NotImplementedError`` until it is ported.
+needs the serve core (a Serve deployment, a replica's fetch over the
+object plane) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -288,9 +288,12 @@ class LLMServer:
         if not isinstance(user_config, dict):
             return
         if user_config.get("weights_ref") is not None:
-            raise NotImplementedError(
-                "weights_ref needs the object plane, which waits for the "
-                "runtime tier's port (ROADMAP R2)")
+            from .._private.roadmap import not_ported
+
+            # the reference's loop-aware fetch over the object plane
+            # serves a replica of a Serve deployment
+            raise not_ported("weights_ref (a replica's fetch over the "
+                             "object plane)", "serve")
         params = user_config.get("weights")
         if params is None:
             return
@@ -310,7 +313,7 @@ class LLMServer:
 
 def build_llm_app(model_factory, **kwargs):
     """A Serve deployment around :class:`LLMServer`; needs the Serve
-    runtime, which waits for the runtime tier's port."""
-    raise NotImplementedError(
-        "build_llm_app needs the Serve runtime, which waits for the "
-        "runtime tier's port (ROADMAP R1)")
+    runtime (the serve core), not ported yet."""
+    from .._private.roadmap import not_ported
+
+    raise not_ported("build_llm_app (the Serve runtime)", "serve")

@@ -10,6 +10,7 @@ order of their sums.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -408,6 +409,48 @@ def test_port_sources_import_no_jax_and_no_ray_tpu():
     assert not bad, bad
 
 
+# A name of the JAX package (or JAX) in a string the port runs or spawns,
+# as ``ray_tpu``'s runtime names its worker, head and zygote entry points
+# in bootstrap sources (``ray_tpu/_private/node.py:141-172``). Docstrings
+# are prose and are not read.
+_SPAWNED_NAME = re.compile(
+    r"(?<![\w/.])(?:ray_tpu|jax|jaxlib|ml_dtypes)\.[A-Za-z_]"
+    r"|\b(?:import|from)\s+(?:ray_tpu|jax|jaxlib|ml_dtypes)\b(?!_)")
+
+
+def _string_constants(tree):
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node
+
+
+def _spawned_names(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return [f"{path.name}:{n.lineno}: {m.group(0)}"
+            for n in _string_constants(tree)
+            for m in [_SPAWNED_NAME.search(n.value)] if m]
+
+
+def test_port_strings_name_no_ray_tpu_or_jax_module():
+    """String constants in the port (bootstrap sources, lazy imports by
+    name) name no module of the JAX package, JAX or ml_dtypes; the scan
+    finds the reference runtime's own bootstrap strings."""
+    assert len(_spawned_names(REPO / "ray_tpu/_private/node.py")) >= 4
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    assert {"ray_tpu_torch/_private/node.py",
+            "ray_tpu_torch/_private/worker_main.py",
+            "ray_tpu_torch/_private/gcs.py",
+            "ray_tpu_torch/train/trainer.py"} <= names
+    bad = [hit for path in _port_sources() for hit in _spawned_names(path)]
+    assert not bad, bad
+
+
 def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
     code = (
         "import sys\n"
@@ -416,6 +459,9 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch.ops.chunked_xent, ray_tpu_torch.models.convert\n"
         "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.pipeline\n"
         "import ray_tpu_torch.parallel.mpmd_pipeline\n"
+        "import ray_tpu_torch.train, ray_tpu_torch.util\n"
+        "import ray_tpu_torch._private.gcs, ray_tpu_torch._private.node\n"
+        "import ray_tpu_torch._private.worker_main\n"
         "from ray_tpu_torch.ops import attention\n"
         "assert attention.KERNELS == ('flash_fwd', 'flash_bwd', "
         "'flash_stats')\n"
@@ -432,7 +478,7 @@ def test_event_buffer_is_bounded_and_drains(monkeypatch):
     from ray_tpu_torch.util import events
 
     events.reset()
-    monkeypatch.setattr(events, "_CAP", 2)
+    monkeypatch.setattr(events, "_cap", 2)
     for i in range(3):
         events.emit("serve.req.queue", plane="serve", rid=str(i))
     events.emit("serve.req.first_token", plane="serve", dur=0.5)
