@@ -173,11 +173,28 @@ Phases, each of which raises on failure (the exit code is then not 0):
      pinned to the card. Worker start, fit() to the first report,
      ms/step against phase 8's, the checkpoint's GB and seconds, the
      restart's seconds and the workers' peak memory are printed; the
-     cluster is shut down at the end, failures included.
+     cluster is shut down at the end, failures included;
+ 18. the Serve runtime: ray_tpu_torch.init(num_cpus=4, num_gpus=1), then
+     (a) serve.run of one LLMServer replica with ray_actor_options
+     {"num_gpus": 1} (phase 4's max_slots and max_len) that draws
+     LLAMA3_8B on the card from a seed, answering phase 4's six requests
+     (one streamed) over the DeploymentHandle, the RPC ingress and, where
+     aiohttp is installed, the HTTP proxy: the replica pinned to ["0"],
+     each route's K1 launches n_layers x 6 in the replica, every response
+     full length in the vocabulary, and each route's tokens held by
+     phase 4's near-tie rule to an in-process LLMServer on the same
+     weights, run after the replica is gone; time from serve.run to the
+     replica ready, each route's client-side TTFT of the streamed request
+     and tokens/s are printed; (b) one LLAMA3_1B replica on the card takes
+     new weights, put once in the object store, by reconfigure({
+     "weights_ref": ref}) through its handle: weights_version 2 and its
+     greedy tokens held to an in-process server on the new weights by the
+     near-tie rule; the refresh's seconds and GB/s are printed. Serve and
+     the cluster are shut down at the end, failures included.
 Phases 2 and 6 also hold the kernels at ViT's call (128, 197, 12/12, 64,
 non-causal), phase 2 at each of phase 13's prefills (1, L, 32/8, 128)
 and phase 6 at an ep rank's (1, 2048, 32/8, 128). Phases run
-in the order 1-5, 13, 6-8, 16, 9-11, 14, 12, 15, 17.
+in the order 1-5, 13, 6-8, 16, 9-11, 14, 12, 15, 17, 18.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -889,7 +906,7 @@ def serve_paged_and_speculative(models, attention, params, cfg, requests,
     # ---- the main path: counts reset just before, read just after
     attention.launches = 0
     t0 = time.perf_counter()
-    outs = asyncio.run(serve_requests(paged, requests))
+    outs, _ = asyncio.run(serve_requests(paged, requests))
     shared_outs = [asyncio.run(paged(body))["tokens"] for body in shared]
     torch.cuda.synchronize()
     paged_s = time.perf_counter() - t0
@@ -925,7 +942,7 @@ def serve_paged_and_speculative(models, attention, params, cfg, requests,
         f"{NEAR_TIE_ULPS} bf16 steps)")
 
     int8 = LLMServer(lambda: (params, cfg), kv_dtype="int8", **pages)
-    int8_outs = asyncio.run(serve_requests(int8, requests))
+    int8_outs, _ = asyncio.run(serve_requests(int8, requests))
     if int8.engine.pools_k[0].dtype != torch.int8 or \
             [len(t) for t in int8_outs] != [len(t) for t in outs]:
         raise AssertionError("int8 KV server: pools not int8 or responses "
@@ -1178,6 +1195,67 @@ def planted_cache_fault(models, params, cfg, prompt):
     raise AssertionError(f"{what}: moe_agreement took its tokens")
 
 
+def moe_host_waits(ffn, params, x, cfg):
+    """Why five calls of the dense MoE (``ffn`` over every layer) could
+    not be queued ahead of the card (C4). One call under
+    torch.cuda.set_sync_debug_mode("warn"): the lines whose ops made the
+    host wait for the card, and the caching allocator's retries, cudaMalloc
+    and cudaFree calls and segments. Then layer calls are queued one by one
+    behind a spin kernel of 64 x LEAD_IN_CYCLES (about 0.65 s): the host
+    time of each, and how many went in before one waited for the card,
+    which a full launch queue makes it do."""
+    import traceback
+    import warnings
+
+    sites = {}
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        # the innermost frame of the port's code on the stack
+        frames = [f for f in traceback.extract_stack()
+                  if "ray_tpu_torch" in f.filename]
+        site = (f"{os.path.relpath(frames[-1].filename)}:{frames[-1].lineno}"
+                if frames else f"{filename}:{lineno}")
+        sites[site] = sites.get(site, 0) + 1
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with torch.no_grad():
+                for layer in params["layers"]:
+                    ffn(layer, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    after = torch.cuda.memory_stats()
+    layers = params["layers"]
+    enqueue_ms = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda._sleep(64 * LEAD_IN_CYCLES)
+        for i in range(5 * len(layers)):
+            t0 = time.perf_counter()
+            ffn(layers[i % len(layers)], x, cfg)
+            enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    queued = next((i for i, ms in enumerate(enqueue_ms) if ms > 50.0),
+                  len(enqueue_ms))
+    return {"host_waits": sum(sites.values()), "sites": sites, **{
+        k: after.get(k, 0) - before.get(k, 0)
+        for k in ("num_alloc_retries", "num_device_alloc",
+                  "num_device_free")},
+        "segments": [before.get("segment.all.current", 0),
+                     after.get("segment.all.current", 0)],
+        "layer_calls_queued_before_a_wait": queued,
+        "enqueue_ms_median": sorted(enqueue_ms[:queued])[queued // 2]
+        if queued else None,
+        "longest_enqueue_ms": max(enqueue_ms)}
+
+
 def serve_mixtral(models, attention):
     """Phase 13, Mixtral serving: MIXTRAL_8X7B's widths at
     MIXTRAL_SERVE_LAYERS layers, random weights from a seed, bf16;
@@ -1256,8 +1334,15 @@ def serve_mixtral(models, attention):
         busy_ms, kernels = device_profile(step, 5)
         x = torch.randn(1, 1, cfg.d_model, generator=torch.Generator(
             device="cuda").manual_seed(15), device="cuda").to(cfg.dtype)
+    waits = moe_host_waits(ffn, params, x, cfg)
+    log(f"Mixtral decode, the dense MoE over {cfg.n_layers} layers (C4): "
+        f"{json.dumps(waits)}; the decode step launches "
+        f"{sum(k[1] for k in kernels)} kernels")
+    with torch.no_grad():
+        # one call a reading: five calls' launches overflow the card's
+        # launch queue (above), so they cannot all be queued ahead of it
         moe_ms = device_ms(lambda: [ffn(layer, x, cfg)
-                                    for layer in params["layers"]], 5)
+                                    for layer in params["layers"]], 1)
     weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     bound_ms = weights / H100_BYTES_PER_S * 1e3
     moe_share = None if moe_ms is None or not busy_ms else moe_ms / busy_ms
@@ -1272,7 +1357,7 @@ def serve_mixtral(models, attention):
                2**30, agreement=agree, prefill_ms=prefill_ms,
                decode_ms=step_ms, decode_busy_share=busy_ms / step_ms,
                moe_share=moe_share, decode_bound_ms=bound_ms,
-               planted_fault=refusal)
+               planted_fault=refusal, moe_host_waits=waits)
     del params, caches, logits
     gc.collect()
     torch.cuda.empty_cache()
@@ -2868,12 +2953,23 @@ def sharded_training(models, parallel, attention, tokens, phase8,
 
 
 async def serve_requests(server, requests):
-    async def one(body):
-        if body.get("stream"):
-            return [t async for t in await server(body)]
-        return (await server(body))["tokens"]
+    """The requests at once through ``server``: each one's tokens, and the
+    streamed one's first token's time after they were sent."""
+    t0 = time.perf_counter()
+    first = []
 
-    return await asyncio.gather(*[one(b) for b in requests])
+    async def one(body):
+        if not body.get("stream"):
+            return (await server(body))["tokens"]
+        toks = []
+        async for tok in await server(body):
+            if not first:
+                first.append(time.perf_counter() - t0)
+            toks.append(tok)
+        return toks
+
+    outs = await asyncio.gather(*[one(b) for b in requests])
+    return outs, (first[0] if first else None)
 
 
 # Phase 17: the runtime's trainer. LLAMA3_1B is trained by
@@ -2997,7 +3093,8 @@ def runtime_loop(cfg):
 
 
 def _session_log_tails(lines: int = 40) -> str:
-    """The last lines of the port's session logs, for a failed phase 17."""
+    """The last lines of the port's session logs, for a failed phase 17
+    or 18."""
     import glob
 
     root = os.environ.get("RAY_TPU_TORCH_TMPDIR", "")
@@ -3152,6 +3249,316 @@ def runtime_training(tokens, dense):
     return out
 
 
+# Phase 18: the Serve runtime. The replicas draw their weights from these
+# seeds on the card; the driver draws the same ones for its in-process
+# reference servers, after each replica is gone.
+SERVE_SEED = 18
+REFRESH_SEEDS = (19, 20)  # the 1B replica's weights, then the refresh's
+REFRESH_PROMPT = 64
+REFRESH_NEW = 24
+
+
+def seeded_llama(name: str, seed: int):
+    """A model factory, shipped by value to a replica: ``models.<name>``
+    drawn on the card from a torch.Generator("cuda") seeded with
+    ``seed``."""
+    def factory():
+        import torch
+        from ray_tpu_torch import models
+
+        cfg = getattr(models, name)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return models.init_params(cfg, gen, device="cuda"), cfg
+
+    return factory
+
+
+def pinned_llm_server():
+    """LLMServer with one op more, ``probe``: the cards the replica was
+    pinned to and its K1 launches. Shipped by value; the package has no
+    such op."""
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    class PinnedLLMServer(LLMServer):
+        def probe(self):
+            import os
+
+            import torch
+
+            import ray_tpu_torch
+            from ray_tpu_torch.ops import attention
+
+            return {"gpu_ids": ray_tpu_torch.get_gpu_ids(),
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "launches": attention.launches,
+                    "device": torch.cuda.get_device_name(0)}
+
+    return PinnedLLMServer
+
+
+def _send_handle(handle):
+    def send(body):
+        t0 = time.perf_counter()
+        if not body.get("stream"):
+            return handle.remote(body).result(timeout=600)["tokens"], None
+
+        async def consume():
+            toks, first = [], None
+            async for tok in handle.stream(body):
+                if first is None:
+                    first = time.perf_counter() - t0
+                toks.append(tok)
+            return toks, first
+
+        return asyncio.run(consume())
+
+    return send
+
+
+def _send_rpc(port, route):
+    from ray_tpu_torch.serve.rpc_client import ServeRpcClient
+
+    def send(body):
+        t0 = time.perf_counter()
+        with ServeRpcClient(port=port, timeout=600) as client:
+            if not body.get("stream"):
+                return client.call(route, body)["tokens"], None
+            toks, first = [], None
+            for tok in client.stream(route, body):
+                if first is None:
+                    first = time.perf_counter() - t0
+                toks.append(tok)
+            return toks, first
+
+    return send
+
+
+def _send_http(port, route):
+    import urllib.request
+
+    def send(body):
+        t0 = time.perf_counter()
+        headers = {"Content-Type": "application/json"}
+        if body.get("stream"):
+            headers["Accept"] = "text/event-stream"
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{route}",
+                                     data=json.dumps(body).encode(),
+                                     headers=headers)
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            if not body.get("stream"):
+                return json.loads(resp.read())["tokens"], None
+            toks, first = [], None
+            for line in resp:
+                if line.startswith(b"data: "):
+                    if first is None:
+                        first = time.perf_counter() - t0
+                    toks.append(json.loads(line[len(b"data: "):]))
+            return toks, first
+
+    return send
+
+
+def drive_route(name, send, probe, requests, vocab, per_route):
+    """Phase 18 (a): the six requests at once over one route; the
+    replica's K1 launches read before and after."""
+    before = probe()["launches"]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(requests)) as pool:
+        outs = list(pool.map(send, requests))
+    wall = time.perf_counter() - t0
+    launches = probe()["launches"] - before
+    toks = [o[0] for o in outs]
+    for body, got in zip(requests, toks):
+        if len(got) != body["max_new_tokens"] or \
+                not all(0 <= t < vocab for t in got):
+            raise AssertionError(f"phase 18 {name}: bad response {got} for "
+                                 f"a prompt of {len(body['prompt'])}")
+    if launches != per_route:
+        raise AssertionError(f"phase 18 {name}: the replica launched K1 "
+                             f"{launches} times, expected {per_route}")
+    ttft = next(o[1] for o in outs if o[1] is not None)
+    n_tok = sum(len(t) for t in toks)
+    log(f"phase 18 (a) {name}: {len(requests)} requests, {n_tok} tokens in "
+        f"{wall} s = {n_tok / wall} tokens/s; the streamed request's first "
+        f"token {ttft} s after it was sent (client side); the replica's K1 "
+        f"launches {launches}")
+    return {"tokens": toks, "tokens_per_s": n_tok / wall, "ttft_s": ttft,
+            "launches": launches}
+
+
+def _replicas_gone(rt, timeout=120.0):
+    """Wait until the cluster's card is free again: the deleted replica's
+    actor has died and its GPU share is back."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if abs(rt.available_resources().get("GPU", 0.0) - 1.0) < 1e-6:
+            return
+        time.sleep(0.2)
+    raise AssertionError(f"phase 18: the card was not freed: "
+                         f"{rt.available_resources()}")
+
+
+def serve_runtime(models, requests):
+    """Phase 18 (see the module docstring): (a) LLAMA3_8B from a replica
+    pinned to the card over every route, (b) a weight refresh over the
+    object plane in a LLAMA3_1B replica. Returns the replica's K1
+    launches."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve import LLMServer
+    from ray_tpu_torch.serve.proxy import ProxyActor
+
+    try:
+        import aiohttp  # noqa: F401 - only whether it is installed
+        http = True
+    except ImportError:
+        http = False
+    os.environ.setdefault("RAY_TPU_TORCH_TMPDIR",
+                          tempfile.mkdtemp(prefix="rtt"))
+    cls = pinned_llm_server()
+    cfg = models.LLAMA3_8B
+    per_route = cfg.n_layers * len(requests)
+    out = {}
+    t_phase = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1, object_store_memory=8 << 30)
+    try:
+        # (a) LLAMA3_8B from a replica pinned to the card
+        app = serve.deployment(cls).options(
+            ray_actor_options={"num_gpus": 1}).bind(
+            seeded_llama("LLAMA3_8B", SERVE_SEED), max_slots=4,
+            max_len=1024)
+        t0 = time.perf_counter()
+        handle = serve.run(app, name="llm8b",
+                           route_prefix="/llm" if http else None)
+        ready_s = time.perf_counter() - t0
+        if http:
+            rpc_port = serve.get_rpc_port()
+        else:
+            proxy = ProxyActor.remote()
+            rpc_port = ray_tpu_torch.get(proxy.start_rpc.remote())
+            ray_tpu_torch.get(proxy.register.remote(
+                "/llm", "llm8b", "PinnedLLMServer"))
+        probe = handle.probe.remote().result(timeout=600)
+        log(f"phase 18 (a): serve.run to the replica ready {ready_s} s; "
+            f"replica on {probe['device']} pinned to {probe['gpu_ids']} "
+            f"(CUDA_VISIBLE_DEVICES {probe['visible']}); HTTP proxy "
+            + ("up" if http else "not started: aiohttp is not installed "
+               "here, so HTTP was held by the CPU tests alone"))
+        if probe["gpu_ids"] != ["0"] or probe["visible"] != "0":
+            raise AssertionError(f"phase 18 (a): replica pinned to "
+                                 f"{probe['gpu_ids']}, CUDA_VISIBLE_DEVICES "
+                                 f"{probe['visible']!r}")
+
+        def read_probe():
+            return handle.probe.remote().result(timeout=600)
+
+        # one short request first, as phase 4's server runs after a
+        # forward: the replica's first prefill loads cuBLAS and the kernel
+        t0 = time.perf_counter()
+        handle.remote({"prompt": requests[0]["prompt"],
+                       "max_new_tokens": 2}).result(timeout=600)
+        log(f"phase 18 (a): the replica's warm-up request took "
+            f"{time.perf_counter() - t0} s, K1 launches "
+            f"{read_probe()['launches']}")
+
+        routes = {"handle": _send_handle(handle),
+                  "rpc": _send_rpc(rpc_port, "/llm")}
+        if http:
+            routes["http"] = _send_http(serve.get_proxy_port(), "/llm")
+        got = {name: drive_route(name, send, read_probe,
+                                 [dict(r) for r in requests],
+                                 cfg.vocab_size, per_route)
+               for name, send in routes.items()}
+        out["launches"] = read_probe()["launches"]
+        serve.delete("llm8b")
+        _replicas_gone(ray_tpu_torch)
+
+        # the in-process reference on the same weights, the replica gone
+        params, _ = seeded_llama("LLAMA3_8B", SERVE_SEED)()
+        server = LLMServer(lambda: (params, cfg), max_slots=4,
+                           max_len=1024)
+        t0 = time.perf_counter()
+        want, ref_ttft = asyncio.run(serve_requests(
+            server, [dict(r) for r in requests]))
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        n_tok = sum(len(t) for t in want)
+        agree = {name: [near_tie_agreement(
+            models, params, cfg, body["prompt"], w, g,
+            f"phase 18 (a) {name}, prompt of {len(body['prompt'])}")[0]
+            for body, w, g in zip(requests, want, run["tokens"])]
+            for name, run in got.items()}
+        log(f"phase 18 (a): the in-process server on the same weights, "
+            f"{n_tok / ref_s} tokens/s, the streamed request's first token "
+            f"after {ref_ttft} s; each route's tokens held to its by "
+            f"the near-tie rule, leading tokens equal {json.dumps(agree)} "
+            f"of {[r['max_new_tokens'] for r in requests]}")
+        del params, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) a weight refresh over the object plane, LLAMA3_1B
+        cfg1 = models.LLAMA3_1B
+        app = serve.deployment(cls).options(
+            ray_actor_options={"num_gpus": 1}).bind(
+            seeded_llama("LLAMA3_1B", REFRESH_SEEDS[0]), max_slots=4,
+            max_len=256)
+        handle = serve.run(app, name="llm1b", route_prefix=None)
+        new, _ = seeded_llama("LLAMA3_1B", REFRESH_SEEDS[1])()
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in models.trainable(new))
+        t0 = time.perf_counter()
+        host = _host_copy(new)
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(host)
+        put_s = time.perf_counter() - t0
+        del host
+        t0 = time.perf_counter()
+        handle.reconfigure.remote({"weights_ref": ref}).result(timeout=600)
+        refresh_s = time.perf_counter() - t0
+        stats = handle.remote({"_admin": "stats"}).result(timeout=600)
+        prompt = torch.randint(0, cfg1.vocab_size, (REFRESH_PROMPT,),
+                               generator=torch.Generator().manual_seed(
+                                   REFRESH_SEEDS[1])).tolist()
+        body = {"prompt": prompt, "max_new_tokens": REFRESH_NEW}
+        after = handle.remote(dict(body)).result(timeout=600)["tokens"]
+        probe = handle.probe.remote().result(timeout=600)
+        serve.delete("llm1b")
+        if stats["weights_version"] != 2 or probe["gpu_ids"] != ["0"]:
+            raise AssertionError(f"phase 18 (b): stats {stats}, replica "
+                                 f"pinned to {probe['gpu_ids']}")
+        server = LLMServer(lambda: (new, cfg1), max_slots=4, max_len=256)
+        want = asyncio.run(server(dict(body)))["tokens"]
+        n, margin = near_tie_agreement(models, new, cfg1, prompt, want,
+                                       after, "phase 18 (b) refresh")
+        log(f"phase 18 (b): {nbytes / 1e9} GB of LLAMA3_1B weights copied "
+            f"off the card in {copy_s} s and put in {put_s} s, the "
+            f"replica's refresh over the object plane took "
+            f"{refresh_s} s = {nbytes / refresh_s / 1e9} GB/s; "
+            f"weights_version {stats['weights_version']}; its greedy tokens "
+            f"agree with an in-process server on the new weights for "
+            f"{n} of {REFRESH_NEW} (near-tie margin {margin})")
+        out.update(refresh_s=refresh_s, refresh_gb=nbytes / 1e9,
+                   ready_s=ready_s, http=http, in_process_ttft_s=ref_ttft,
+                   in_process_tokens_per_s=n_tok / ref_s,
+                   routes={k: {f: v[f] for f in ("tokens_per_s", "ttft_s")}
+                           for k, v in got.items()})
+        del new, server
+    except BaseException:
+        log(_session_log_tails())
+        raise
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+    log(f"phase 18 done in {time.perf_counter() - t_phase} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3206,7 +3613,7 @@ def main() -> int:
     fwd_s = time.perf_counter() - t0
     finite = bool(torch.isfinite(logits).all())
     t0 = time.perf_counter()
-    outs = asyncio.run(serve_requests(server, requests))
+    outs, _ = asyncio.run(serve_requests(server, requests))
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = attention.launches
@@ -3351,6 +3758,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     runtime = runtime_training(train_tokens, dense)["a"]
 
+    # Phase 18: the Serve runtime, replicas pinned to the card.
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving = serve_runtime(models, requests)
+
     def sharded_launches(counter):
         """Phase 12's launches of a counter: per rank by run, and in all."""
         by_run = {f"phase 12 {name}, per rank": [g[counter] for g in got]
@@ -3382,7 +3794,7 @@ def main() -> int:
         + uly["launches"] + mixtral_serve["launches"]
         + mixtral_train["launches"] + vit_train["launches"]
         + vit_forward_launches + runtime["launches"]
-        + sharded_launches("launches")[1],
+        + serving["launches"] + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
                              "train_remat_chunked": remat["launches"],
@@ -3395,6 +3807,7 @@ def main() -> int:
                              "vit_train": vit_train["launches"],
                              "vit_forward": vit_forward_launches,
                              "runtime_train_worker": runtime["launches"],
+                             "serve_replica": serving["launches"],
                              **sharded_launches("launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],

@@ -8,7 +8,9 @@ tier with the reference's API (``python/ray/__init__.py``): ``init``,
 ``shutdown``, ``remote``, ``get``, ``put``, ``wait``, ``kill``, ``cancel``,
 ``get_actor``, ``nodes``, ``cluster_resources``, ``available_resources``,
 ``get_gpu_ids``, ``get_runtime_context``. ``train`` holds
-``TorchTrainer``, which runs a training loop in worker actors.
+``TorchTrainer``, which runs a training loop in worker actors, and
+``serve`` the Serve runtime (deployments, handles, a controller, HTTP and
+RPC ingress) with ``build_llm_app``.
 
 The compute tier: Llama-family, Mixtral (MoE) and ViT model code
 (``models``, each with a differentiable forward and ``loss_fn``), its ops

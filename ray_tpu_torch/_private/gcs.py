@@ -31,7 +31,7 @@ import math
 import os
 import time
 from collections import OrderedDict, deque
-from typing import Any, Dict, List, Optional, Set, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 from ray_tpu_torch.util import events as plane_events
 
@@ -102,14 +102,19 @@ def _res_add(avail: Dict[str, float], req: Dict[str, float]):
 _CARD = "GPU#"
 
 
-def _gpu_pick(free: Dict[str, float], want: float) -> Optional[List[str]]:
+def _gpu_pick(free: Dict[str, float], want: float,
+              prefer: Sequence[str] = ()) -> Optional[List[str]]:
     """The card ids a request for ``want`` GPUs takes from ``free`` (card
     id -> unleased share), or None when no card can take it: a fraction
     needs one card with that share free (the fullest such card, so 0.5 +
-    0.5 share one), a whole count that many free cards."""
-    order = sorted(free, key=int)
+    0.5 share one), a whole count that many free cards. Cards in
+    ``prefer`` (those a bundle's surviving holders still use) go first."""
+    first = [i for i in prefer if i in free]
+    order = first + [i for i in sorted(free, key=int) if i not in first]
     if want < 1.0:
         fits = [i for i in order if free[i] >= want - 1e-9]
+        if any(i in first for i in fits):
+            fits = [i for i in fits if i in first]
         return [min(fits, key=lambda i: free[i])] if fits else None
     whole = [i for i in order if free[i] >= 1.0 - 1e-9]
     n = math.ceil(want - 1e-9)
@@ -125,12 +130,13 @@ def _gpu_fits(free: Dict[str, float], want: float) -> bool:
     return want <= 0 or _gpu_pick(free, want) is not None
 
 
-def _gpu_take(free: Dict[str, float], want: float) -> Dict[str, float]:
+def _gpu_take(free: Dict[str, float], want: float,
+              prefer: Sequence[str] = ()) -> Dict[str, float]:
     """Take a placeable request's cards out of ``free``: id -> share."""
     if want <= 0:
         return {}
     share = _gpu_share(want)
-    taken = {i: share for i in _gpu_pick(free, want)}
+    taken = {i: share for i in _gpu_pick(free, want, prefer)}
     for i in taken:
         free[i] -= share
     return taken
@@ -216,6 +222,9 @@ class WorkerInfo:
         self.gpu_share = 0.0
         self.gpu_pool: Optional[Dict[str, float]] = None
         self.gpu_pinned = False
+        # The cards a worker that survived a GCS restart reports in its
+        # resync hello: it holds them until its actor or lease ends.
+        self.gpu_reported: List[str] = []
 
 
 class TaskRecord:
@@ -950,8 +959,10 @@ class GcsServer:
         # WAL-restored placement groups re-place once agents re-register:
         # without this kick nothing ever schedules them and every
         # PG-targeted task/actor would pend forever after a GCS restart.
+        # A resumed GCS places them when the adoption window closes, once
+        # their surviving holders have reported the cards they use.
         for record in self.pgs.values():
-            if record.state == "pending":
+            if record.state == "pending" and not self.resumed:
                 asyncio.get_running_loop().call_later(
                     0.2, self._retry_pg, record)
         if self.resumed:
@@ -972,6 +983,9 @@ class GcsServer:
             if entry is not None and entry.ready and entry.refcount <= 0:
                 self._lru_touch(entry)
         self._restored_oids = []
+        for pg in list(self.pgs.values()):
+            if pg.state == "pending":
+                self._retry_pg(pg)
         for record in list(self.actors.values()):
             if not record.restored or record.state != A_PENDING:
                 continue
@@ -1212,6 +1226,7 @@ class GcsServer:
                                if w.actor_id else None)
                         if rec is not None:
                             w.acquired = self._acquire(node, rec)
+                            self._hold_reported_gpus(node, w, rec)
                     elif w.acquired:
                         _res_sub(node.avail, w.acquired)
             logger.info("node %s joined: %s", node_id.hex()[:8], msg["resources"])
@@ -1229,6 +1244,8 @@ class GcsServer:
                               msg.get("addr", ""), msg.get("pid", 0))
             info.obj_addr = msg.get("obj_addr") or ""
             info.env_key = msg.get("env_key", "")
+            info.gpu_reported = [str(i) for i in msg.get("gpus") or ()]
+            info.gpu_pinned = bool(info.gpu_reported)
             if info.env_key:
                 self._env_failures.pop(info.env_key, None)  # env builds now
             self.workers[worker_id] = info
@@ -1264,6 +1281,7 @@ class GcsServer:
                     record.state = A_ALIVE
                     if node is not None:
                         info.acquired = self._acquire(node, record)
+                        self._hold_reported_gpus(node, info, record)
                     for conn, req in record.addr_waiters:
                         if not conn.closed:
                             conn.reply(req, {"ok": True, "state": A_ALIVE,
@@ -2543,7 +2561,8 @@ class GcsServer:
         zeroed while still HOLDING its leases, so it could acquire up to
         a full second quota's worth on the fresh instance."""
         ns = self._client_tenant(client)
-        for wid_b, res in msg.get("leases", []):
+        for claim in msg.get("leases", []):
+            wid_b, res = claim[0], claim[1]
             w = self.workers.get(WorkerID(bytes(wid_b)))
             if w is None or w.conn.closed:
                 continue
@@ -2561,6 +2580,10 @@ class GcsServer:
                     w.acquired = {k: float(v) for k, v in
                                   (res or {}).items()}
                     _res_sub(node.avail, w.acquired)
+                    if len(claim) > 2 and claim[2]:
+                        w.gpu_reported = [str(i) for i in claim[2]]
+                        w.gpu_pinned = True
+                    self._hold_reported_gpus(node, w, None)
             if w.lease_ctx is None and not already:
                 # Synthetic lease context: release stays symmetric (the
                 # eventual lease_ret must decrement the usage charged
@@ -3021,6 +3044,48 @@ class GcsServer:
         for i in worker.gpu_ids:
             worker.gpu_pool[i] += worker.gpu_share
         worker.gpu_ids, worker.gpu_share, worker.gpu_pool = [], 0.0, None
+
+    def _hold_reported_gpus(self, node: NodeInfo, worker: WorkerInfo,
+                            record) -> None:
+        """Take the cards a worker that survived a GCS restart reports out
+        of the node's free shares, or its placement-group bundle's, as it
+        re-charges the resources they came with. A bundle not placed again
+        yet takes them when it is (``_place_bundles``)."""
+        if not worker.gpu_reported or worker.gpu_ids or \
+                worker.acquired.get("GPU", 0.0) <= 0:
+            return
+        if record is not None and record.pg is not None:
+            pg = self.pgs.get(PlacementGroupID(record.pg))
+            if pg is None or pg.state != "ready":
+                return
+            pool = pg.gpu_free[record.bundle if record.bundle is not None
+                               else 0]
+        else:
+            pool = node.gpu_free
+        self._take_reported_gpus(worker, pool)
+
+    @staticmethod
+    def _take_reported_gpus(worker: WorkerInfo, pool: Dict[str, float]):
+        ids = [i for i in worker.gpu_reported if i in pool]
+        share = _gpu_share(float(worker.acquired.get("GPU", 0.0)))
+        for i in ids:
+            pool[i] -= share
+        worker.gpu_ids, worker.gpu_share = ids, share
+        worker.gpu_pool = pool if ids else None
+
+    def _bundle_holders(self, record: PGRecord) -> Dict[int, List[WorkerInfo]]:
+        """Per bundle, the surviving actor workers of ``record`` that
+        reported cards and hold none yet (a GCS restart's resync)."""
+        out: Dict[int, List[WorkerInfo]] = {}
+        pg_b = record.pg_id.binary()
+        for w in self.workers.values():
+            rec = self.actors.get(w.actor_id) if w.actor_id else None
+            if (w.gpu_reported and not w.gpu_ids and w.acquired
+                    and rec is not None and rec.pg is not None
+                    and bytes(rec.pg) == pg_b):
+                bix = rec.bundle if rec.bundle is not None else 0
+                out.setdefault(bix, []).append(w)
+        return out
 
     def _retire_gpu_worker(self, worker: WorkerInfo) -> bool:
         """A worker that was pinned to GPUs may hold a CUDA context for
@@ -4264,6 +4329,9 @@ class GcsServer:
             return False
         nodes = [n for n in self.nodes.values() if n.schedulable()]
         nodes.sort(key=lambda n: n.node_id.binary())
+        holders = self._bundle_holders(record)
+        prefer = [[i for w in holders.get(bix, ()) for i in w.gpu_reported]
+                  for bix in range(len(record.bundles))]
         staged: Dict[NodeID, Dict[str, float]] = {
             n.node_id: dict(n.avail, **{_CARD + i: v
                                         for i, v in n.gpu_free.items()})
@@ -4272,7 +4340,8 @@ class GcsServer:
         if strategy in ("STRICT_PACK",):
             for n in nodes:
                 avail = dict(staged[n.node_id])
-                if all(self._stage(avail, b) for b in record.bundles):
+                if all(self._stage(avail, b, prefer[bix])
+                       for bix, b in enumerate(record.bundles)):
                     placement = [n.node_id] * len(record.bundles)
                     break
             else:
@@ -4281,11 +4350,11 @@ class GcsServer:
             if len(nodes) < len(record.bundles):
                 return False
             used: Set[NodeID] = set()
-            for b in record.bundles:
+            for bix, b in enumerate(record.bundles):
                 for n in nodes:
                     if n.node_id in used:
                         continue
-                    if self._stage(staged[n.node_id], b):
+                    if self._stage(staged[n.node_id], b, prefer[bix]):
                         placement.append(n.node_id)
                         used.add(n.node_id)
                         break
@@ -4297,7 +4366,7 @@ class GcsServer:
                 rotated = order[idx % len(order):] + order[:idx % len(order)] \
                     if strategy == "SPREAD" else order
                 for n in rotated:
-                    if self._stage(staged[n.node_id], b):
+                    if self._stage(staged[n.node_id], b, prefer[idx]):
                         placement.append(n.node_id)
                         break
                 else:
@@ -4309,8 +4378,11 @@ class GcsServer:
             node = self.nodes[node_id]
             _res_sub(node.avail, bundle)
             # staging placed the cards in this order, so they fit
-            held = _gpu_take(node.gpu_free, bundle.get("GPU", 0.0))
+            held = _gpu_take(node.gpu_free, bundle.get("GPU", 0.0),
+                             prefer[bix])
             record.gpu_held[bix], record.gpu_free[bix] = held, dict(held)
+            for w in holders.get(bix, ()):
+                self._take_reported_gpus(w, record.gpu_free[bix])
         record.placement = placement
         if self._tenant_quotas and not record.quota_charged:
             self._tenant_acquire(record.tenant,
@@ -4322,14 +4394,15 @@ class GcsServer:
         return True
 
     @staticmethod
-    def _stage(avail: Dict[str, float], bundle: Dict[str, float]) -> bool:
+    def _stage(avail: Dict[str, float], bundle: Dict[str, float],
+               prefer: Sequence[str] = ()) -> bool:
         if not _res_fits(avail, bundle):
             return False
         want = bundle.get("GPU", 0.0)
         if want > 0:
             cards = {k[len(_CARD):]: v for k, v in avail.items()
                      if k.startswith(_CARD)}
-            pick = _gpu_pick(cards, want)
+            pick = _gpu_pick(cards, want, prefer)
             if pick is None:
                 return False
             for i in pick:

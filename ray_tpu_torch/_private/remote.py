@@ -53,6 +53,14 @@ def method(*, concurrency_group: Optional[str] = None,
     return wrap
 
 
+def _check_num_gpus(opts: dict) -> None:
+    """A GPU count above 1 must be whole: a worker is pinned to whole
+    cards or to a share of one (upstream Ray refuses such counts too)."""
+    n = float(opts.get("num_gpus") or 0)
+    if n > 1 and not n.is_integer():
+        raise ValueError(f"num_gpus={n}: a count above 1 must be whole")
+
+
 def _build_resources(opts: dict) -> Dict[str, float]:
     res: Dict[str, float] = {}
     if opts.get("num_cpus"):
@@ -193,6 +201,7 @@ class RemoteFunction:
         self._opts = dict(_DEFAULT_TASK_OPTS)
         if opts:
             self._opts.update(opts)
+        _check_num_gpus(self._opts)
         self._blob: Optional[bytes] = None
         self._fid: Optional[str] = None
         self._registered_sessions: set = set()
@@ -348,6 +357,7 @@ class ActorClass:
         self._opts = dict(_DEFAULT_ACTOR_OPTS)
         if opts:
             self._opts.update(opts)
+        _check_num_gpus(self._opts)
         self._blob: Optional[bytes] = None
         self._fid: Optional[str] = None
         self._registered_sessions: set = set()

@@ -738,7 +738,7 @@ class Worker:
                 for lease in cls.leases.values():
                     if not lease.dead:
                         claims.append([lease.wid, cls.wire.get("res")
-                                       or {"CPU": 1.0}])
+                                       or {"CPU": 1.0}, lease.gpus or []])
             if claims:
                 self._send_gcs({"t": "lease_claim", "leases": claims})
         for cls in self._task_classes.values():

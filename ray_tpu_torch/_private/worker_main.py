@@ -1300,6 +1300,9 @@ async def amain(args):
             # restored record binds to this worker instead of restarting
             # (reference: worker resync after GCS failover).
             hello["actor_id"] = executor.actor_id.binary()
+        if executor.pinned_gpus:
+            # ... and the cards it is pinned to, which it keeps using.
+            hello["gpus"] = executor.pinned_gpus
         reply = await worker.gcs.request(hello, timeout=30)
         # Epoch-gated resync (chaos-found): the WORKER lane was
         # re-helloing without ever running _resync_after_reconnect, so a

@@ -1,3 +1,324 @@
-from .llm import LLMServer, build_llm_app
+"""serve: model serving on the actor runtime.
 
-__all__ = ["LLMServer", "build_llm_app"]
+Reference API surface: ``serve.run`` (``serve/api.py:491``),
+``@serve.deployment``, ``DeploymentHandle``, dynamic batching, HTTP ingress.
+``LLMServer`` and ``build_llm_app`` (``serve.llm``) load on first use, so
+the controller and proxy actors, which import this package, never import
+torch.
+"""
+
+from __future__ import annotations
+
+import cloudpickle
+from typing import Any, Dict, Optional
+
+import ray_tpu_torch
+
+from dataclasses import dataclass as _dataclass
+
+from .batching import batch
+from .multiplex import get_multiplexed_model_id, multiplexed
+from .controller import get_controller, reset_controller_cache
+from .deployment import (
+    Application,
+    Deployment,
+    DeploymentHandle,
+    DeploymentResponse,
+    ReplicaContext,
+    deployment,
+    get_replica_context,
+)
+from .ingress import ingress
+from .proxy import ProxyActor, Request
+
+_proxy = None
+_proxy_port: Optional[int] = None
+_proxy_rpc_port: Optional[int] = None
+
+
+def _collect_graph(app: Application, out: Dict[str, Application],
+                   app_name: str):
+    """Walk bind args for nested Applications (model composition)."""
+    out[app.deployment.name] = app
+    new_args = []
+    for a in app.args:
+        if isinstance(a, Application):
+            _collect_graph(a, out, app_name)
+            new_args.append(DeploymentHandle(a.deployment.name, app_name))
+        else:
+            new_args.append(a)
+    app.args = tuple(new_args)
+    new_kwargs = {}
+    for k, a in app.kwargs.items():
+        if isinstance(a, Application):
+            _collect_graph(a, out, app_name)
+            new_kwargs[k] = DeploymentHandle(a.deployment.name, app_name)
+        else:
+            new_kwargs[k] = a
+    app.kwargs = new_kwargs
+
+
+class _LocalResponse:
+    """DeploymentResponse stand-in for local testing mode."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def result(self, timeout=None):
+        return self._value
+
+    def __await__(self):
+        async def _v():
+            return self._value
+        return _v().__await__()
+
+
+def _run_coro_in_thread(coro):
+    """Run a coroutine to completion on a fresh thread+loop.
+
+    ``asyncio.run`` in a dedicated thread sidesteps "event loop already
+    running" when local handle calls nest (async ingress awaiting an async
+    downstream), and closes the loop when done. The caller's contextvars
+    (multiplexed model id) are carried across the thread boundary.
+    """
+    import asyncio
+    import contextvars
+    import threading
+
+    ctx = contextvars.copy_context()
+    result: list = []
+    error: list = []
+
+    def runner():
+        try:
+            result.append(ctx.run(asyncio.run, coro))
+        except BaseException as e:  # noqa: BLE001
+            error.append(e)
+
+    t = threading.Thread(target=runner, daemon=True)
+    t.start()
+    t.join()
+    if error:
+        raise error[0]
+    return result[0]
+
+
+class _LocalHandle:
+    """In-process deployment handle (reference: serve's
+    ``local_testing_mode.py`` — run deployments without a cluster)."""
+
+    def __init__(self, instance, method_name: str = "__call__",
+                 multiplexed_model_id: str = ""):
+        self._instance = instance
+        self._method = method_name
+        self._model_id = multiplexed_model_id
+
+    def options(self, method_name=None, multiplexed_model_id=None):
+        # `is not None` (not falsy-or): clearing back to "" must work,
+        # matching DeploymentHandle.options semantics.
+        return _LocalHandle(
+            self._instance,
+            method_name if method_name is not None else self._method,
+            multiplexed_model_id if multiplexed_model_id is not None
+            else self._model_id)
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return self.options(method_name=name)
+
+    def remote(self, *args, **kwargs) -> _LocalResponse:
+        import asyncio
+
+        from .multiplex import (_reset_multiplexed_model_id,
+                                _set_multiplexed_model_id)
+
+        # Set for this call only — and always (even to ""), so a stale id
+        # from a previous multiplexed call can't leak into this one.
+        token = _set_multiplexed_model_id(self._model_id)
+        try:
+            target = getattr(self._instance, self._method, None)
+            if target is None and self._method == "__call__":
+                target = self._instance
+            out = target(*args, **kwargs)
+            if asyncio.iscoroutine(out):
+                out = _run_coro_in_thread(out)
+            return _LocalResponse(out)
+        finally:
+            _reset_multiplexed_model_id(token)
+
+
+def _run_local(target: Application, name: str,
+               instances: Optional[Dict[str, Any]] = None) -> _LocalHandle:
+    # Dedup by deployment name, matching cluster mode's _collect_graph:
+    # a diamond graph shares ONE instance of a deployment, not one per
+    # bind site.
+    if instances is None:
+        instances = {}
+    dep = target.deployment
+    if dep.name in instances:
+        return _LocalHandle(instances[dep.name])
+    args = [(_run_local(a, name, instances)
+             if isinstance(a, Application) else a) for a in target.args]
+    kwargs = {k: (_run_local(a, name, instances)
+                  if isinstance(a, Application) else a)
+              for k, a in target.kwargs.items()}
+    instance = dep._target(*args, **kwargs) if dep.is_class else dep._target
+    instances[dep.name] = instance
+    return _LocalHandle(instance)
+
+
+def run(target: Application, *, name: str = "default",
+        route_prefix: Optional[str] = "/",
+        _blocking: bool = True,
+        _local_testing_mode: bool = False) -> DeploymentHandle:
+    """Deploy an application; returns the ingress handle
+    (reference: ``serve.run`` ``serve/api.py:491``)."""
+    if not isinstance(target, Application):
+        raise TypeError("serve.run expects Deployment.bind(...)")
+    if _local_testing_mode:
+        # Everything in-process, no actors/cluster: the unit-test mode the
+        # reference ships as ``serve/_private/local_testing_mode.py``.
+        return _run_local(target, name)
+    if not ray_tpu_torch.is_initialized():
+        ray_tpu_torch.init(ignore_reinit_error=True)
+    graph: Dict[str, Application] = {}
+    _collect_graph(target, graph, name)
+    specs = []
+    for dep_name, app in graph.items():
+        d = app.deployment
+        specs.append({
+            "name": d.name,
+            "blob": cloudpickle.dumps(d._target),
+            "init_args": app.args,
+            "init_kwargs": app.kwargs,
+            "is_class": d.is_class,
+            "num_replicas": d.num_replicas,
+            "actor_options": d.ray_actor_options,
+            "user_config": d.user_config,
+        })
+    ctl = get_controller()
+    ray_tpu_torch.get(ctl.deploy.remote(name, specs))
+    if route_prefix is not None:
+        _ensure_proxy()
+        ray_tpu_torch.get(_proxy.register.remote(
+            route_prefix, name, target.deployment.name))
+    return DeploymentHandle(target.deployment.name, name)
+
+
+def _ensure_proxy(port: int = 0, host: str = "127.0.0.1"):
+    global _proxy, _proxy_port, _proxy_rpc_port
+    if _proxy is not None:
+        return
+    _proxy = ProxyActor.options(name="SERVE_PROXY",
+                                lifetime="detached").remote()
+    _proxy_port = ray_tpu_torch.get(_proxy.start.remote(host=host, port=port))
+    # Binary RPC ingress rides the same proxy actor (reference: the gRPC
+    # proxy lives alongside the HTTP proxy in ProxyActor).
+    _proxy_rpc_port = ray_tpu_torch.get(_proxy.start_rpc.remote())
+
+
+def get_proxy_port() -> Optional[int]:
+    if _proxy is None:
+        return None
+    return _proxy_port
+
+
+def get_rpc_port() -> Optional[int]:
+    if _proxy is None:
+        return None
+    return _proxy_rpc_port
+
+
+def get_deployment_handle(deployment_name: str,
+                          app_name: str = "default") -> DeploymentHandle:
+    return DeploymentHandle(deployment_name, app_name)
+
+
+def get_app_handle(name: str = "default") -> DeploymentHandle:
+    ctl = get_controller()
+    deps = ray_tpu_torch.get(ctl.list_deployments.remote(name))
+    app = deps.get(name)
+    if not app:
+        raise ValueError(f"no app named {name!r}")
+    return DeploymentHandle(next(iter(app)), name)
+
+
+def delete(name: str = "default"):
+    ctl = get_controller()
+    ray_tpu_torch.get(ctl.delete_app.remote(name))
+
+
+def status() -> dict:
+    ctl = get_controller()
+    return ray_tpu_torch.get(ctl.list_deployments.remote())
+
+
+def shutdown():
+    global _proxy, _proxy_port, _proxy_rpc_port
+    _proxy_rpc_port = None
+    from .deployment import _ConfigWatcher
+
+    _ConfigWatcher.stop()
+    try:
+        ctl = get_controller()
+        apps = list(ray_tpu_torch.get(ctl.list_deployments.remote()))
+        # Fan every delete_app out first, one barrier after.
+        ray_tpu_torch.get([ctl.delete_app.remote(app) for app in apps])
+        ray_tpu_torch.kill(ctl)
+    except Exception:
+        pass
+    if _proxy is not None:
+        try:
+            ray_tpu_torch.kill(_proxy)
+        except Exception:
+            pass
+    _proxy = None
+    _proxy_port = None
+    reset_controller_cache()
+
+
+@_dataclass
+class HTTPOptions:
+    """Proxy settings for ``serve.start`` (reference:
+    ``ray.serve.config.HTTPOptions``)."""
+
+    host: str = "127.0.0.1"
+    port: int = 0           # 0 = pick a free port
+    location: str = "HeadOnly"
+
+
+def start(detached: bool = True, *,
+          http_options: Optional[HTTPOptions] = None, **kw) -> None:
+    """Boot the Serve instance (controller + ingress proxy) without
+    deploying an app yet (reference: ``serve.start``, ``serve/api.py:64``).
+    ``serve.run`` calls this implicitly; explicit start pins the HTTP
+    host/port up front."""
+    if not ray_tpu_torch.is_initialized():
+        ray_tpu_torch.init(ignore_reinit_error=True)
+    get_controller()  # creates the singleton controller actor
+    opts = http_options or HTTPOptions()
+    _ensure_proxy(port=opts.port, host=opts.host)
+
+
+__all__ = [
+    "deployment", "Deployment", "Application", "DeploymentHandle",
+    "DeploymentResponse", "Request", "run", "delete", "status", "shutdown",
+    "batch", "get_deployment_handle", "get_app_handle", "get_proxy_port",
+    "get_rpc_port", "multiplexed", "get_multiplexed_model_id",
+    "start", "HTTPOptions", "ingress", "get_replica_context",
+    "ReplicaContext", "LLMServer", "build_llm_app",
+]
+
+
+def __getattr__(name):
+    if name in ("LLMServer", "build_llm_app"):
+        from . import llm
+
+        return getattr(llm, name)
+    raise AttributeError(
+        f"module 'ray_tpu_torch.serve' has no attribute {name!r}")
+
+from ray_tpu_torch._private.usage import record_library_usage as _rlu
+_rlu('serve')
+del _rlu

@@ -1,0 +1,292 @@
+"""ServeController: the singleton reconciler for apps and replicas.
+
+Reference: ``ServeController`` (``serve/_private/controller.py:84``) +
+``DeploymentState`` reconciliation (``deployment_state.py:1245``). Holds the
+desired state {app -> deployments -> num_replicas}, creates/kills replica
+actors to match, restarts dead replicas (health loop), and applies simple
+request-based autoscaling when an ``autoscaling_config`` is present.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from typing import Any, Dict, List, Optional
+
+import cloudpickle
+
+import ray_tpu_torch
+
+CONTROLLER_NAME = "SERVE_CONTROLLER"
+
+
+
+def _spawn_replica(app_name: str, spec: dict):
+    """One replica actor with its identity wired for
+    ``serve.get_replica_context()``."""
+    import uuid
+
+    from .deployment import Replica
+
+    opts = dict(spec.get("actor_options") or {})
+    opts.setdefault("max_concurrency", 100)
+    return Replica.options(**opts).remote(
+        spec["blob"], tuple(spec.get("init_args") or ()),
+        spec.get("init_kwargs") or {}, spec["is_class"],
+        app_name=app_name, deployment_name=spec["name"],
+        replica_tag=f"{app_name}#{spec['name']}#{uuid.uuid4().hex[:8]}")
+
+
+@ray_tpu_torch.remote
+class ServeController:
+    def __init__(self, health_check_period_s: float = 10.0):
+        import threading
+
+        # app -> dep name -> {"deployment": blob..., "replicas": [handles]}
+        self.apps: Dict[str, Dict[str, dict]] = {}
+        # The reconciliation loop (reference: DeploymentState health loop,
+        # deployment_state.py:1245) — replaces dead replicas on a period.
+        self._stop_health = threading.Event()
+        self._health_thread = threading.Thread(
+            target=self._health_loop, args=(health_check_period_s,),
+            daemon=True, name="serve-health")
+        self._health_thread.start()
+
+    def _health_loop(self, period: float):
+        while not self._stop_health.wait(period):
+            try:
+                # Drain first: replicas on DRAINING nodes are replaced
+                # proactively (new replicas healthy BEFORE the old stop),
+                # so check_health never sees them as surprise deaths.
+                self.check_drain()
+            except Exception:
+                pass
+            try:
+                self.check_health()
+            except Exception:
+                pass  # transient cluster churn; next period retries
+
+    def deploy(self, app_name: str, deployments: List[dict]):
+        """deployments: [{name, blob, init_args, init_kwargs, is_class,
+        num_replicas, actor_options, user_config}]"""
+        from .deployment import Replica
+
+        app = self.apps.setdefault(app_name, {})
+        for spec in deployments:
+            current = app.get(spec["name"])
+            if current is not None:
+                for r in current["replicas"]:
+                    try:
+                        ray_tpu_torch.kill(r)
+                    except Exception:
+                        pass
+            replicas = []
+            for i in range(spec["num_replicas"]):
+                replicas.append(_spawn_replica(app_name, spec))
+            if spec.get("user_config") is not None:
+                ray_tpu_torch.get([r.reconfigure.remote(spec["user_config"])
+                             for r in replicas])
+            app[spec["name"]] = {"spec": spec, "replicas": replicas}
+            self._notify(app_name, spec["name"])
+        # Block until all replicas respond (deployment is ready).
+        for dep in app.values():
+            ray_tpu_torch.get([r.health_check.remote() for r in dep["replicas"]])
+        return True
+
+    def _notify(self, app_name: str, deployment_name: Optional[str] = None):
+        """Config-push (reference: ``serve/_private/long_poll.py`` — the
+        controller notifies routers/handles of replica-set changes instead
+        of making them poll). Rides the GCS pubsub plane; handles watch
+        the channel and refresh their replica cache lazily."""
+        from ray_tpu_torch.util import pubsub
+
+        try:
+            pubsub.publish("serve_config",
+                           {"app": app_name, "deployment": deployment_name},
+                           wait=False)
+        except Exception:
+            pass  # notification is best-effort; handles also self-heal
+
+    def get_replicas(self, app_name: str, deployment_name: str):
+        app = self.apps.get(app_name, {})
+        dep = app.get(deployment_name)
+        return list(dep["replicas"]) if dep else []
+
+    def list_deployments(self, app_name: str = None):
+        out = {}
+        for an, deps in self.apps.items():
+            if app_name is not None and an != app_name:
+                continue
+            out[an] = {name: {"num_replicas": len(d["replicas"])}
+                       for name, d in deps.items()}
+        return out
+
+    def delete_app(self, app_name: str):
+        deps = self.apps.pop(app_name, {})
+        for dep in deps.values():
+            for r in dep["replicas"]:
+                try:
+                    ray_tpu_torch.kill(r)
+                except Exception:
+                    pass
+        self._notify(app_name)
+        return True
+
+    def scale(self, app_name: str, deployment_name: str, num_replicas: int):
+        """Manual / autoscaler-driven replica count change."""
+        from .deployment import Replica
+
+        dep = self.apps.get(app_name, {}).get(deployment_name)
+        if dep is None:
+            return False
+        spec = dep["spec"]
+        cur = dep["replicas"]
+        if num_replicas > len(cur):
+            for _ in range(num_replicas - len(cur)):
+                cur.append(_spawn_replica(app_name, spec))
+            ray_tpu_torch.get([r.health_check.remote() for r in cur])
+        elif num_replicas < len(cur):
+            for r in cur[num_replicas:]:
+                try:
+                    ray_tpu_torch.kill(r)
+                except Exception:
+                    pass
+            dep["replicas"] = cur[:num_replicas]
+        self._notify(app_name, deployment_name)
+        return True
+
+    def check_drain(self):
+        """Vacate replicas off DRAINING nodes (graceful node drain).
+
+        For every replica whose node the GCS reports as draining: spawn a
+        replacement (the scheduler already refuses draining nodes), wait
+        for it to come healthy, publish the new replica set so routers /
+        handles stop sending the old replica traffic, THEN kill the old
+        one — requests in flight on it finish; no request ever lands on a
+        replica that is about to vanish with its node."""
+        from ray_tpu_torch.util import state as state_api
+
+        try:
+            draining_nodes = {n["node_id"] for n in state_api.list_nodes()
+                              if n.get("draining") and n.get("alive")}
+        except Exception:
+            return 0
+        if not draining_nodes:
+            return 0
+        try:
+            actor_node = {a["actor_id"]: a["node_id"]
+                          for a in state_api.list_actors(limit=100000)}
+        except Exception:
+            return 0
+        moved = 0
+        for app_name, app in self.apps.items():
+            for dep in app.values():
+                doomed = [r for r in dep["replicas"]
+                          if actor_node.get(r._id.hex()) in draining_nodes]
+                if not doomed:
+                    continue
+                spec = dep["spec"]
+                fresh = [_spawn_replica(app_name, spec) for _ in doomed]
+                if spec.get("user_config") is not None:
+                    # fan out, then collect: one straggler must not
+                    # serialize the whole batch
+                    cfg_refs = [r.reconfigure.remote(spec["user_config"])
+                                for r in fresh]
+                    for ref in cfg_refs:
+                        try:
+                            ray_tpu_torch.get(ref, timeout=30)
+                        except Exception:
+                            pass
+                try:
+                    ray_tpu_torch.get([r.health_check.remote() for r in fresh],
+                                timeout=30)
+                except Exception:
+                    # Replacements not up (e.g. no capacity left): keep
+                    # the old replicas serving until the next round — a
+                    # draining node still works until its deadline.
+                    for r in fresh:
+                        try:
+                            ray_tpu_torch.kill(r)
+                        except Exception:
+                            pass
+                    continue
+                dep["replicas"] = [r for r in dep["replicas"]
+                                   if r not in doomed] + fresh
+                moved += len(doomed)
+                self._notify(app_name, spec["name"])
+                for r in doomed:
+                    try:
+                        ray_tpu_torch.kill(r)
+                    except Exception:
+                        pass
+        return moved
+
+    def check_health(self):
+        """Replace dead replicas (reference: DeploymentState health loop)."""
+        from .deployment import Replica
+
+        replaced = 0
+        for app_name, app in self.apps.items():
+            for dep in app.values():
+                alive = []
+                # all probes in flight at once: N replicas cost one
+                # 5s timeout worst-case, not N
+                probes = [(r, r.health_check.remote())
+                          for r in dep["replicas"]]
+                for r, ref in probes:
+                    try:
+                        ray_tpu_torch.get(ref, timeout=5)
+                        alive.append(r)
+                    except Exception:
+                        replaced += 1
+                spec = dep["spec"]
+                while len(alive) < spec["num_replicas"]:
+                    alive.append(_spawn_replica(app_name, spec))
+                dep["replicas"] = alive
+        if replaced:
+            for app_name in self.apps:
+                self._notify(app_name)
+        return replaced
+
+
+_controller = None
+
+
+def get_controller():
+    """Get or start the singleton controller (detached named actor)."""
+    global _controller
+    if _controller is not None:
+        return _controller
+    try:
+        _controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
+        # Probe it.
+        ray_tpu_torch.get(_controller.list_deployments.remote(), timeout=10)
+    except Exception:
+        _controller = ServeController.options(
+            name=CONTROLLER_NAME, lifetime="detached").remote()
+    return _controller
+
+
+async def get_controller_async():
+    """Event-loop-safe controller lookup (used inside async replicas; the
+    controller always exists by the time a replica runs)."""
+    global _controller
+    if _controller is not None:
+        return _controller
+    from ray_tpu_torch import _AnyMethodActorHandle
+    from ray_tpu_torch._private.ids import ActorID
+    from ray_tpu_torch._private.worker import global_worker
+
+    w = global_worker()
+    reply = await w.gcs.request({"t": "actor_by_name",
+                                 "name": CONTROLLER_NAME,
+                                 "namespace": w.namespace})
+    if not reply.get("ok"):
+        raise RuntimeError("serve controller is not running")
+    _controller = _AnyMethodActorHandle(ActorID(reply["aid"]), [], 0)
+    return _controller
+
+
+def reset_controller_cache():
+    global _controller
+    _controller = None

@@ -1,0 +1,729 @@
+"""Deployments, handles, and routing.
+
+Reference surface: ``@serve.deployment`` (``python/ray/serve/api.py:246``),
+``Deployment`` (``serve/deployment.py:64``), ``DeploymentHandle``
+(``serve/handle.py:618``) with power-of-two-choices replica scheduling
+(``serve/_private/replica_scheduler/pow_2_scheduler.py:52``). Replicas are
+plain actors; the handle keeps local in-flight counts and picks the less
+loaded of two random replicas — same algorithm, no separate router actor
+hop.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import random
+from typing import Any, Callable, Dict, List, Optional
+
+import ray_tpu_torch
+from ray_tpu_torch.util import events as plane_events
+
+# Per-tenant serve-queue depth (requests admitted to THIS replica and
+# not yet finished), keyed by the request body's "tenant" field — the
+# SLO telemetry a router can route and shed on.
+_tenant_gauge = plane_events.gauge(
+    "serve_tenant_queue_depth",
+    "in-flight serve requests per tenant on this replica",
+    tag_keys=("deployment", "tenant"))
+_tenant_depth: Dict[tuple, int] = {}
+
+
+def _note_tenant_queue(deployment: str, tenant: str, delta: int) -> None:
+    if not plane_events._enabled:
+        return
+    key = (deployment, tenant)
+    _tenant_depth[key] = max(0, _tenant_depth.get(key, 0) + delta)
+    _tenant_gauge(_tenant_depth[key],
+                  deployment=deployment, tenant=tenant)
+
+
+def _request_tenant(args: tuple) -> str:
+    """Tenant tag for a replica call: the "tenant" field of a dict
+    first arg — absent means the anonymous default tenant."""
+    if args and isinstance(args[0], dict):
+        return str(args[0].get("tenant") or "")
+    return ""
+
+
+def _stream_done(dep: str, tenant: str, method: str, ok: bool) -> None:
+    _note_tenant_queue(dep, tenant or "default", -1)
+    plane_events.emit("serve.req.done", plane="serve", tenant=tenant,
+                      deployment=dep, method=method, ok=ok, stream=1)
+
+
+async def _stream_lifetime_agen(gen, dep, tenant, method):
+    """Bracket an async generator's consumption: done fires (and the
+    tenant queue decrements) at exhaustion/close, not creation."""
+    ok = True
+    try:
+        async for item in gen:
+            yield item
+    except BaseException:
+        ok = False
+        raise
+    finally:
+        _stream_done(dep, tenant, method, ok)
+
+
+def _stream_lifetime_gen(gen, dep, tenant, method):
+    ok = True
+    try:
+        for item in gen:
+            yield item
+    except BaseException:
+        ok = False
+        raise
+    finally:
+        _stream_done(dep, tenant, method, ok)
+
+
+async def _stream_lifetime_coro(coro, dep, tenant, method):
+    ok = True
+    try:
+        return await coro
+    except BaseException:
+        ok = False
+        raise
+    finally:
+        _stream_done(dep, tenant, method, ok)
+
+
+class DeploymentResponse:
+    """Future-like result of ``handle.remote()`` (reference:
+    ``serve/handle.py`` DeploymentResponse). Works from driver threads
+    (``.result()``) and inside async replicas (``await``)."""
+
+    def __init__(self, ref: Optional[ray_tpu_torch.ObjectRef],
+                 on_done: Callable[[], None],
+                 async_coro=None, retry_ctx: Optional[tuple] = None):
+        self._ref = ref
+        self._on_done = on_done
+        self._coro = async_coro
+        self._done = False
+        # (handle, args, kwargs, replica_actor_id) for dead-replica
+        # failover; released in _finish so request payloads don't pin.
+        self._retry_ctx = retry_ctx
+
+    def _finish(self):
+        if not self._done:
+            self._done = True
+            self._retry_ctx = None
+            self._on_done()
+
+    def result(self, timeout: Optional[float] = None):
+        if self._ref is None:
+            raise RuntimeError(
+                "this response was created on the event loop; use `await`")
+        try:
+            try:
+                return ray_tpu_torch.get(self._ref, timeout=timeout)
+            except (ray_tpu_torch.ActorDiedError, ray_tpu_torch.WorkerCrashedError):
+                # Replica died under this request: re-resolve, excluding
+                # the dead replica, and retry once on a live one
+                # (reference: router failure rescheduling, pow_2).
+                if self._retry_ctx is None:
+                    raise
+                handle, args, kwargs, dead = self._retry_ctx
+                self._retry_ctx = None
+                self._ref = handle._retry_submit(args, kwargs, dead)
+                return ray_tpu_torch.get(self._ref, timeout=timeout)
+        finally:
+            self._finish()
+
+    def __await__(self):
+        async def _wait():
+            try:
+                if self._coro is not None:
+                    return await self._coro
+                try:
+                    return await self._ref
+                except (ray_tpu_torch.ActorDiedError,
+                        ray_tpu_torch.WorkerCrashedError):
+                    if self._retry_ctx is None:
+                        raise
+                    handle, args, kwargs, dead = self._retry_ctx
+                    self._retry_ctx = None
+                    self._ref = await handle._retry_submit_async(
+                        args, kwargs, dead)
+                    return await self._ref
+            finally:
+                self._finish()
+
+        return _wait().__await__()
+
+
+class ReplicaContext:
+    """Identity of the replica a piece of code runs inside (reference:
+    ``ray.serve.context.ReplicaContext``)."""
+
+    def __init__(self, app_name: str, deployment: str, replica_tag: str,
+                 servable_object: Any):
+        self.app_name = app_name
+        self.deployment = deployment
+        self.replica_tag = replica_tag
+        self.replica_id = replica_tag
+        self.servable_object = servable_object
+
+    def __repr__(self):
+        return (f"ReplicaContext(app={self.app_name!r}, "
+                f"deployment={self.deployment!r}, "
+                f"replica_tag={self.replica_tag!r})")
+
+
+_replica_context: Optional[ReplicaContext] = None
+
+
+def _set_replica_context(ctx: ReplicaContext) -> None:
+    global _replica_context
+    _replica_context = ctx
+
+
+def get_replica_context() -> ReplicaContext:
+    """Inside a replica: who am I (reference:
+    ``serve.get_replica_context``)."""
+    if _replica_context is None:
+        raise RuntimeError(
+            "get_replica_context() can only be called inside a Serve "
+            "replica (no replica is hosted by this process)")
+    return _replica_context
+
+
+@ray_tpu_torch.remote
+class Replica:
+    """One deployment replica hosting the user callable."""
+
+    def __init__(self, cls_or_fn_blob: bytes, init_args: tuple,
+                 init_kwargs: dict, is_class: bool,
+                 app_name: str = "default", deployment_name: str = "",
+                 replica_tag: str = ""):
+        import importlib
+
+        import cloudpickle
+
+        target = cloudpickle.loads(cls_or_fn_blob)
+        # The actor class ships to this worker pickled BY VALUE (the
+        # module attribute `Replica` is the ActorClass wrapper, so
+        # cloudpickle cannot pickle the inner class by reference) — a
+        # bare `global` here would write into the copy's detached
+        # namespace. Resolve the REAL module and set the context there,
+        # where get_replica_context() (imported by reference) reads it.
+        dmod = importlib.import_module("ray_tpu_torch.serve.deployment")
+        ctx = dmod.ReplicaContext(app_name, deployment_name, replica_tag,
+                                  None)
+        dmod._set_replica_context(ctx)
+        # Re-bind nested deployment handles (model composition).
+        if is_class:
+            self.callable = target(*init_args, **init_kwargs)
+        else:
+            self.callable = target
+        ctx.servable_object = self.callable
+
+    async def handle_request_async(self, method: str, args: tuple,
+                                   kwargs: dict):
+        model_id = kwargs.pop("_multiplexed_model_id", "")
+        if model_id:
+            from .multiplex import _set_multiplexed_model_id
+
+            _set_multiplexed_model_id(model_id)
+        target = getattr(self.callable, method, None)
+        if target is None and method == "__call__":
+            target = self.callable
+        if target is None:
+            raise AttributeError(f"deployment has no method {method!r}")
+        # Serve-plane admit/done events + per-tenant queue depth.
+        tenant = _request_tenant(args)
+        ctx = _replica_context
+        dep = ctx.deployment if ctx is not None else ""
+        plane_events.emit("serve.req.admit", plane="serve",
+                          tenant=tenant, deployment=dep, method=method)
+        _note_tenant_queue(dep, tenant or "default", 1)
+        try:
+            out = target(*args, **kwargs)
+            if asyncio.iscoroutine(out):
+                out = await out
+        except BaseException:
+            _note_tenant_queue(dep, tenant or "default", -1)
+            plane_events.emit("serve.req.done", plane="serve",
+                              tenant=tenant, deployment=dep,
+                              method=method, ok=False)
+            raise
+        import inspect
+
+        _note_tenant_queue(dep, tenant or "default", -1)
+        if inspect.isgenerator(out) or inspect.isasyncgen(out):
+            # Generators can't ride the unary reply; the ingress probes
+            # with a unary call first (the fast batched actor-call path)
+            # and falls back to the streaming channel on this marker.
+            # Only the PROBE is done here — the request's real lifetime
+            # is the streaming dispatch, which owns its own admit→done
+            # pair below (a probe-time "done" would zero the tenant
+            # queue gauge before a single token streamed).
+            plane_events.emit("serve.req.done", plane="serve",
+                              tenant=tenant, deployment=dep,
+                              method=method, ok=True, stream_handoff=1)
+            return {"__serve_needs_stream__": True}
+        plane_events.emit("serve.req.done", plane="serve",
+                          tenant=tenant, deployment=dep,
+                          method=method, ok=True)
+        return out
+
+    def handle_request_stream(self, spec):
+        """Streaming dispatch: returns whatever the user callable produces
+        (generator / async generator / coroutine / value) — the worker's
+        stream_call executor drives it chunk by chunk. The admit→done
+        pair here brackets the stream's REAL lifetime (wrapping the
+        generator to its exhaustion), so the per-tenant queue gauge
+        counts in-flight streams, not just unary calls."""
+        import inspect
+
+        method, args, kwargs = spec
+        model_id = kwargs.pop("_multiplexed_model_id", "")
+        if model_id:
+            from .multiplex import _set_multiplexed_model_id
+
+            _set_multiplexed_model_id(model_id)
+        target = getattr(self.callable, method, None)
+        if target is None and method == "__call__":
+            target = self.callable
+        if target is None:
+            raise AttributeError(f"deployment has no method {method!r}")
+        out = target(*args, **kwargs)
+        tenant = _request_tenant(args)
+        ctx = _replica_context
+        dep = ctx.deployment if ctx is not None else ""
+        plane_events.emit("serve.req.admit", plane="serve",
+                          tenant=tenant, deployment=dep, method=method,
+                          stream=1)
+        _note_tenant_queue(dep, tenant or "default", 1)
+        if inspect.isasyncgen(out):
+            return _stream_lifetime_agen(out, dep, tenant, method)
+        if inspect.isgenerator(out):
+            return _stream_lifetime_gen(out, dep, tenant, method)
+        if asyncio.iscoroutine(out):
+            return _stream_lifetime_coro(out, dep, tenant, method)
+        _note_tenant_queue(dep, tenant or "default", -1)
+        plane_events.emit("serve.req.done", plane="serve", tenant=tenant,
+                          deployment=dep, method=method, ok=True,
+                          stream=1)
+        return out
+
+    def reconfigure(self, user_config):
+        if hasattr(self.callable, "reconfigure"):
+            self.callable.reconfigure(user_config)
+        return True
+
+    def health_check(self):
+        if hasattr(self.callable, "check_health"):
+            self.callable.check_health()
+        return True
+
+
+class _ConfigWatcher:
+    """Process-wide listener on the controller's ``serve_config`` channel
+    (reference: ``serve/_private/long_poll.py`` LongPollClient). Handles
+    compare their watermark against ``version(app, dep)`` and refresh the
+    replica cache only when the controller actually changed something —
+    no per-request polling, no stale routing after scale/redeploy."""
+
+    _instance: Optional["_ConfigWatcher"] = None
+
+    def __init__(self):
+        import threading
+
+        self._versions: Dict[tuple, int] = {}
+        self._global = 0
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._stop_requested = False
+
+    @classmethod
+    def get(cls) -> "_ConfigWatcher":
+        if cls._instance is None:
+            cls._instance = _ConfigWatcher()
+        cls._instance._ensure_thread()
+        return cls._instance
+
+    def _ensure_thread(self):
+        import threading
+
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="serve-config-watch")
+        self._thread.start()
+
+    def _run(self):
+        try:
+            from ray_tpu_torch._private import worker as worker_mod
+            from ray_tpu_torch.util.pubsub import Subscriber
+
+            w = worker_mod._global_worker
+            sub = self._sub = Subscriber("serve_config")
+            while True:
+                if self._stop_requested:
+                    sub.close()
+                    break
+                item = sub.poll(timeout=1.0)
+                if item is None:
+                    if sub._closed.is_set():
+                        break
+                    # Timed out: exit when this session died so the next
+                    # handle resolve starts a fresh watcher on the new
+                    # session (a blocked-forever thread would read as
+                    # "alive" and wedge notifications permanently).
+                    if worker_mod._global_worker is not w or w.closed:
+                        break
+                    continue
+                # Per-item handling: one malformed message on the public
+                # channel must not kill the watcher.
+                try:
+                    with self._lock:
+                        m = item.get("message")
+                        if item.get("resubscribed") or not isinstance(
+                                m, dict):
+                            # Gap (or junk): events may have been missed.
+                            self._global += 1
+                            continue
+                        key = (m.get("app"), m.get("deployment"))
+                        if key[1] is None:  # app-wide change
+                            self._versions[(key[0], None)] = \
+                                self._versions.get((key[0], None), 0) + 1
+                        else:
+                            self._versions[key] = \
+                                self._versions.get(key, 0) + 1
+                except Exception:
+                    with self._lock:
+                        self._global += 1
+        except Exception:
+            pass  # no cluster yet; a later handle resolve restarts us
+        finally:
+            with self._lock:
+                # Anything published after this thread stops is unseen.
+                self._global += 1
+
+    @classmethod
+    def stop(cls):
+        """serve.shutdown hook: close the channel subscription so its
+        pump task doesn't linger into interpreter teardown."""
+        inst = cls._instance
+        if inst is None:
+            return
+        inst._stop_requested = True  # covers a thread still starting up
+        sub = getattr(inst, "_sub", None)
+        if sub is not None:
+            try:
+                sub.close()
+            except Exception:
+                pass
+        cls._instance = None
+
+    def version(self, app: str, deployment: str) -> int:
+        with self._lock:
+            return (self._global
+                    + self._versions.get((app, None), 0)
+                    + self._versions.get((app, deployment), 0))
+
+
+class DeploymentHandle:
+    def __init__(self, deployment_name: str, app_name: str = "default",
+                 method_name: str = "__call__",
+                 multiplexed_model_id: str = ""):
+        self.deployment_name = deployment_name
+        self.app_name = app_name
+        self.method_name = method_name
+        self.multiplexed_model_id = multiplexed_model_id
+        self._replicas: List[Any] = []
+        self._inflight: Dict[int, int] = {}
+        self._rng = random.Random()
+        self._seen_version = -1  # config-push watermark (_ConfigWatcher)
+
+    @staticmethod
+    def _on_io_thread() -> bool:
+        from ray_tpu_torch._private.worker import global_worker
+
+        import threading
+
+        w = global_worker()
+        return threading.current_thread() is w._loop_thread
+
+    def _fresh(self) -> bool:
+        return self._seen_version == _ConfigWatcher.get().version(
+            self.app_name, self.deployment_name)
+
+    def _refresh(self):
+        from .controller import get_controller
+
+        # Snapshot BEFORE fetching: a change landing mid-fetch triggers
+        # another refresh on the next call instead of being missed.
+        self._seen_version = _ConfigWatcher.get().version(
+            self.app_name, self.deployment_name)
+        ctl = get_controller()
+        self._replicas = ray_tpu_torch.get(ctl.get_replicas.remote(
+            self.app_name, self.deployment_name))
+        self._inflight = {i: 0 for i in range(len(self._replicas))}
+
+    async def _refresh_async(self):
+        from .controller import get_controller_async
+
+        self._seen_version = _ConfigWatcher.get().version(
+            self.app_name, self.deployment_name)
+        ctl = await get_controller_async()
+        self._replicas = await ctl.get_replicas.remote(
+            self.app_name, self.deployment_name)
+        self._inflight = {i: 0 for i in range(len(self._replicas))}
+
+    def options(self, method_name: Optional[str] = None,
+                multiplexed_model_id: Optional[str] = None
+                ) -> "DeploymentHandle":
+        h = DeploymentHandle(
+            self.deployment_name, self.app_name,
+            method_name or self.method_name,
+            multiplexed_model_id if multiplexed_model_id is not None
+            else self.multiplexed_model_id)
+        h._replicas = self._replicas
+        h._seen_version = self._seen_version
+        h._inflight = self._inflight
+        return h
+
+    def _pick(self) -> int:
+        """Power-of-two-choices by local in-flight count."""
+        n = len(self._replicas)
+        if n == 1:
+            return 0
+        a, b = self._rng.sample(range(n), 2)
+        return a if self._inflight.get(a, 0) <= self._inflight.get(b, 0) else b
+
+    def _submit(self, args, kwargs):
+        """Returns (ref, done, picked_actor_id). The picked id rides the
+        return value — not handle state — so two concurrent ``remote()``
+        calls can't cross-wire each other's failover exclusion."""
+        idx = self._pick()
+        replica = self._replicas[idx]
+        picked = replica._actor_id.binary()
+        self._inflight[idx] = self._inflight.get(idx, 0) + 1
+        if self.multiplexed_model_id:
+            kwargs = {**kwargs,
+                      "_multiplexed_model_id": self.multiplexed_model_id}
+        ref = replica.handle_request_async.remote(
+            self.method_name, args, kwargs)
+
+        def done():
+            self._inflight[idx] = max(0, self._inflight.get(idx, 1) - 1)
+
+        return ref, done, picked
+
+    def _exclude_dead(self, dead_actor_id):
+        if dead_actor_id is None:
+            return
+        live = [r for r in self._replicas
+                if r._actor_id.binary() != dead_actor_id]
+        if live:  # never filter down to nothing
+            self._replicas = live
+            self._inflight = {i: 0 for i in range(len(live))}
+
+    def _retry_submit(self, args, kwargs, dead_actor_id):
+        self._replicas = []
+        self._refresh()  # re-resolve from the controller
+        self._exclude_dead(dead_actor_id)
+        if not self._replicas:
+            raise RuntimeError(
+                f"deployment {self.deployment_name!r} has no live "
+                "replicas")
+        ref, done, _ = self._submit(args, kwargs)
+        done()
+        return ref
+
+    async def _retry_submit_async(self, args, kwargs, dead_actor_id):
+        self._replicas = []
+        await self._refresh_async()
+        self._exclude_dead(dead_actor_id)
+        if not self._replicas:
+            raise RuntimeError(
+                f"deployment {self.deployment_name!r} has no live "
+                "replicas")
+        ref, done, _ = self._submit(args, kwargs)
+        done()
+        return ref
+
+    def remote(self, *args, **kwargs) -> DeploymentResponse:
+        if self._replicas and not self._fresh():
+            self._replicas = []  # config changed: re-resolve below
+        if self._replicas:
+            ref, done, picked = self._submit(args, kwargs)
+            return DeploymentResponse(
+                ref, done, retry_ctx=(self, args, kwargs, picked))
+        if self._on_io_thread():
+            # Inside an async replica: replica discovery must not block the
+            # event loop — resolve it as part of the awaited chain.
+            async def call():
+                await self._refresh_async()
+                if not self._replicas:
+                    raise RuntimeError(
+                        f"deployment {self.deployment_name!r} has no "
+                        f"replicas")
+                ref, done, _ = self._submit(args, kwargs)
+                try:
+                    return await ref
+                finally:
+                    done()
+
+            return DeploymentResponse(None, lambda: None,
+                                      async_coro=call())
+        self._refresh()
+        if not self._replicas:
+            raise RuntimeError(
+                f"deployment {self.deployment_name!r} has no replicas")
+        ref, done, picked = self._submit(args, kwargs)
+        return DeploymentResponse(
+            ref, done, retry_ctx=(self, args, kwargs, picked))
+
+    async def stream(self, *args, **kwargs):
+        """Async generator over the replica method's yielded values.
+
+        The streaming ingress path (reference: Serve streaming responses,
+        ``serve/_private/proxy.py:1129`` + streaming generators): chunks
+        flow over the replica's direct channel as the generator produces
+        them — a non-generator handler yields exactly one chunk. Works
+        from any event loop: the transport runs on the runtime's IO loop;
+        foreign loops get chunks bridged thread-safely.
+        """
+        import asyncio
+
+        from ray_tpu_torch._private.worker import global_worker
+
+        w = global_worker()
+        loop = asyncio.get_running_loop()
+        if loop is w.loop:
+            async for item in self._stream_on_io_loop(args, kwargs):
+                yield item
+            return
+        out_q: asyncio.Queue = asyncio.Queue()
+
+        async def pump():
+            try:
+                async for item in self._stream_on_io_loop(args, kwargs):
+                    loop.call_soon_threadsafe(out_q.put_nowait,
+                                              ("chunk", item))
+                loop.call_soon_threadsafe(out_q.put_nowait, ("end", None))
+            except BaseException as e:  # noqa: BLE001
+                loop.call_soon_threadsafe(out_q.put_nowait, ("err", e))
+
+        asyncio.run_coroutine_threadsafe(pump(), w.loop)
+        while True:
+            kind, item = await out_q.get()
+            if kind == "chunk":
+                yield item
+            elif kind == "err":
+                raise item
+            else:
+                return
+
+    async def _stream_on_io_loop(self, args, kwargs):
+        from ray_tpu_torch._private import serialization
+        from ray_tpu_torch._private.worker import global_worker
+
+        if self._replicas and not self._fresh():
+            self._replicas = []  # config changed: re-resolve
+        if not self._replicas:
+            await self._refresh_async()
+            if not self._replicas:
+                raise RuntimeError(
+                    f"deployment {self.deployment_name!r} has no replicas")
+        idx = self._pick()
+        replica = self._replicas[idx]
+        self._inflight[idx] = self._inflight.get(idx, 0) + 1
+        if self.multiplexed_model_id:
+            kwargs = {**kwargs,
+                      "_multiplexed_model_id": self.multiplexed_model_id}
+        w = global_worker()
+        try:
+            ch = await w._get_actor_conn(replica._actor_id)
+            q = ch.conn.request_stream({
+                "t": "stream_call", "m": "handle_request_stream",
+                "args": serialization.serialize(
+                    (((self.method_name, args, kwargs),), {})).to_bytes()})
+            while True:
+                kind, m = await q.get()
+                if kind == "chunk":
+                    yield serialization.deserialize(memoryview(m["val"]))
+                else:
+                    if m.get("err"):
+                        raise RuntimeError(m["err"])
+                    return
+        finally:
+            self._inflight[idx] = max(0, self._inflight.get(idx, 1) - 1)
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return self.options(method_name=name)
+
+    def __reduce__(self):
+        return (DeploymentHandle,
+                (self.deployment_name, self.app_name, self.method_name,
+                 self.multiplexed_model_id))
+
+
+class Application:
+    """A bound deployment graph node (``Deployment.bind`` result)."""
+
+    def __init__(self, deployment: "Deployment", args: tuple, kwargs: dict):
+        self.deployment = deployment
+        self.args = args
+        self.kwargs = kwargs
+
+
+class Deployment:
+    def __init__(self, target: Callable, name: str,
+                 num_replicas: int = 1,
+                 ray_actor_options: Optional[dict] = None,
+                 user_config: Any = None,
+                 max_ongoing_requests: int = 100,
+                 autoscaling_config: Optional[dict] = None):
+        self._target = target
+        self.name = name
+        self.num_replicas = num_replicas
+        self.ray_actor_options = ray_actor_options or {}
+        self.user_config = user_config
+        self.max_ongoing_requests = max_ongoing_requests
+        self.autoscaling_config = autoscaling_config
+
+    def bind(self, *args, **kwargs) -> Application:
+        return Application(self, args, kwargs)
+
+    def options(self, *, num_replicas: Optional[int] = None,
+                name: Optional[str] = None,
+                ray_actor_options: Optional[dict] = None,
+                user_config: Any = None,
+                autoscaling_config: Optional[dict] = None,
+                max_ongoing_requests: Optional[int] = None) -> "Deployment":
+        return Deployment(
+            self._target,
+            name or self.name,
+            num_replicas if num_replicas is not None else self.num_replicas,
+            ray_actor_options or self.ray_actor_options,
+            user_config if user_config is not None else self.user_config,
+            max_ongoing_requests or self.max_ongoing_requests,
+            autoscaling_config or self.autoscaling_config)
+
+    @property
+    def is_class(self) -> bool:
+        import inspect
+
+        return inspect.isclass(self._target)
+
+
+def deployment(target=None, *, name: Optional[str] = None,
+               num_replicas: int = 1, ray_actor_options: Optional[dict] = None,
+               user_config: Any = None, max_ongoing_requests: int = 100,
+               autoscaling_config: Optional[dict] = None):
+    """``@serve.deployment`` decorator (reference: ``serve/api.py:246``)."""
+
+    def wrap(t):
+        return Deployment(t, name or t.__name__, num_replicas,
+                          ray_actor_options, user_config,
+                          max_ongoing_requests, autoscaling_config)
+
+    if target is not None:
+        return wrap(target)
+    return wrap

@@ -5,9 +5,9 @@ streaming calls get tokens as the engine emits them, and concurrent
 requests share every decode step through one engine pump. The engine is
 the dense-slot ``GenerationEngine`` or, with ``kv_cache="paged"``, the
 page-pool ``PagedEngine``; with a ``draft_factory``, requests that ask for
-``{"speculative": true}`` run batch-1 speculative decoding beside it. What
-needs the serve core (a Serve deployment, a replica's fetch over the
-object plane) raises ``NotImplementedError`` naming its ROADMAP item.
+``{"speculative": true}`` run batch-1 speculative decoding beside it.
+``build_llm_app`` wraps it in a Serve deployment, whose replicas can take
+new weights over the object plane (``reconfigure({"weights_ref": ref})``).
 """
 
 from __future__ import annotations
@@ -25,6 +25,9 @@ from ..models.paged import PagedEngine
 from ..models.speculative import generate_speculative
 from ..ops.quant import Q8
 from ..util import events as plane_events
+# `serve.deployment` the attribute shadows the submodule; import the
+# decorator from the module itself.
+from .deployment import deployment as _deployment
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -158,10 +161,17 @@ class LLMServer:
         self._ensure_loop()
         return rid
 
+    @staticmethod
+    def _body(request: Any) -> dict:
+        if isinstance(request, dict):
+            return request
+        if hasattr(request, "json"):
+            return request.json()
+        raise TypeError(f"unsupported request: {type(request)}")
+
     # ------------------------------------------------------- handlers
-    async def __call__(self, body: dict):
-        if not isinstance(body, dict):
-            raise TypeError(f"a request is a dict, got {type(body)}")
+    async def __call__(self, request: Any):
+        body = self._body(request)
         if body.get("_admin"):
             return self._admin(body)
         if body.get("speculative"):
@@ -277,26 +287,44 @@ class LLMServer:
             }
         raise ValueError(f"unknown _admin op {op!r}")
 
-    def reconfigure(self, user_config) -> None:
-        """Live weight refresh: ``{"weights": tree}`` swaps the engine's
-        parameters between two steps without dropping in-flight requests,
-        drops the paged engine's prefix cache (its pages hold K/V of the
-        old weights) and rebuilds the speculative draft from the new
-        weights. It waits for a running step, so call it off the event
-        loop while requests are in flight. ``weights_ref`` needs the
-        object plane and raises."""
+    def reconfigure(self, user_config):
+        """Live weight refresh: ``{"weights": tree}`` or ``{"weights_ref":
+        ref}`` (the driver ``put`` s the tree once and each replica fetches
+        it over the object plane) swaps the engine's parameters between two
+        steps without dropping in-flight requests, drops the paged engine's
+        prefix cache (its pages hold K/V of the old weights) and rebuilds
+        the speculative draft from the new weights.
+
+        Loop-aware: the controller's fan-out calls this from an executor
+        thread, where a blocking fetch is fine; a handle-routed call lands
+        on the replica's event loop, where a blocking ``get`` would
+        deadlock the loop that must deliver the object, so that path gets
+        a coroutine (awaited by the replica) that fetches in the executor.
+        """
+        try:
+            asyncio.get_running_loop()
+        except RuntimeError:
+            return self._refresh_weights(user_config)
+
+        async def _run():
+            await asyncio.get_running_loop().run_in_executor(
+                None, self._refresh_weights, user_config)
+
+        return _run()
+
+    def _refresh_weights(self, user_config) -> None:
         if not isinstance(user_config, dict):
             return
-        if user_config.get("weights_ref") is not None:
-            from .._private.roadmap import not_ported
-
-            # the reference's loop-aware fetch over the object plane
-            # serves a replica of a Serve deployment
-            raise not_ported("weights_ref (a replica's fetch over the "
-                             "object plane)", "serve")
         params = user_config.get("weights")
+        ref = user_config.get("weights_ref")
+        if ref is not None:
+            import ray_tpu_torch
+
+            params = ray_tpu_torch.get(ref)
         if params is None:
             return
+        # A fetched tree is store views on the host: move it to the
+        # engine's device once, not once per step.
         params = _to_device(params, self.engine.device)
         with self._engine_lock:
             self.engine.params = params
@@ -311,9 +339,22 @@ class LLMServer:
                           self._spec[4])
 
 
-def build_llm_app(model_factory, **kwargs):
-    """A Serve deployment around :class:`LLMServer`; needs the Serve
-    runtime (the serve core), not ported yet."""
-    from .._private.roadmap import not_ported
-
-    raise not_ported("build_llm_app (the Serve runtime)", "serve")
+def build_llm_app(model_factory, *, max_slots: int = 4,
+                  max_len: int = 512, num_replicas: int = 1,
+                  kv_cache: str = "dense", num_pages: int = 64,
+                  page_size: int = 16,
+                  enable_prefix_cache: bool = False,
+                  kv_dtype: str = "model",
+                  draft_factory=None, draft_k: int = 4, device=None):
+    """Bind an LLM serving app: ``serve.run(build_llm_app(factory))``.
+    ``kv_cache="paged"`` hosts the page-pool engine; ``draft_factory=
+    (params, cfg) -> (draft_params, draft_cfg)`` enables the speculative
+    request path. ``device`` is each replica's (``None``: its card)."""
+    dep = _deployment(LLMServer, num_replicas=num_replicas)
+    return dep.bind(model_factory, max_slots=max_slots, max_len=max_len,
+                    kv_cache=kv_cache, num_pages=num_pages,
+                    page_size=page_size,
+                    enable_prefix_cache=enable_prefix_cache,
+                    kv_dtype=kv_dtype,
+                    draft_factory=draft_factory, draft_k=draft_k,
+                    device=device)

@@ -9,7 +9,7 @@ from .scheduling_strategies import (
     PlacementGroupSchedulingStrategy,
 )
 
-from . import metrics, state, tracing
+from . import metrics, pubsub, state, tracing
 
 __all__ = [
     "PlacementGroup", "placement_group", "remove_placement_group",

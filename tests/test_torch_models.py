@@ -354,16 +354,10 @@ def test_server_reconfigure_swaps_weights(model):
     assert srv._admin({"_admin": "stats"})["weights_version"] == 2
 
 
-def test_server_unported_paths_raise(model):
-    """What needs the runtime tier raises: the object plane and the Serve
-    runtime. The paged cache and speculative decoding are ported (the
-    tests below)."""
+def test_server_refuses_an_unknown_kv_cache(model):
+    """The dense and paged caches are the only ones; the Serve app and the
+    refresh over the object plane are tested in test_torch_serve.py."""
     _, tparams = model
-    srv = _server(tparams)
-    with pytest.raises(NotImplementedError, match="object plane"):
-        srv.reconfigure({"weights_ref": object()})
-    with pytest.raises(NotImplementedError, match="Serve runtime"):
-        tllm.build_llm_app(lambda: (tparams, TCFG))
     with pytest.raises(ValueError, match="kv_cache"):
         _server(tparams, kv_cache="ring")
 

@@ -404,7 +404,13 @@ def test_port_sources_import_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/parallel/ring_attention.py",
             "ray_tpu_torch/parallel/ulysses.py",
             "ray_tpu_torch/parallel/pipeline.py",
-            "ray_tpu_torch/parallel/mpmd_pipeline.py"} <= names
+            "ray_tpu_torch/parallel/mpmd_pipeline.py",
+            "ray_tpu_torch/serve/deployment.py",
+            "ray_tpu_torch/serve/controller.py",
+            "ray_tpu_torch/serve/proxy.py",
+            "ray_tpu_torch/serve/config_file.py",
+            "ray_tpu_torch/util/pubsub.py",
+            "ray_tpu_torch/_private/usage.py"} <= names
     assert len(_port_sources()) > 10
     assert not bad, bad
 
@@ -446,7 +452,9 @@ def test_port_strings_name_no_ray_tpu_or_jax_module():
     assert {"ray_tpu_torch/_private/node.py",
             "ray_tpu_torch/_private/worker_main.py",
             "ray_tpu_torch/_private/gcs.py",
-            "ray_tpu_torch/train/trainer.py"} <= names
+            "ray_tpu_torch/train/trainer.py",
+            "ray_tpu_torch/serve/deployment.py",
+            "ray_tpu_torch/serve/controller.py"} <= names
     bad = [hit for path in _port_sources() for hit in _spawned_names(path)]
     assert not bad, bad
 
@@ -462,6 +470,14 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch.train, ray_tpu_torch.util\n"
         "import ray_tpu_torch._private.gcs, ray_tpu_torch._private.node\n"
         "import ray_tpu_torch._private.worker_main\n"
+        "import ray_tpu_torch.serve.deployment, ray_tpu_torch.serve.proxy\n"
+        "import ray_tpu_torch.serve.controller, ray_tpu_torch.serve.ingress\n"
+        "import ray_tpu_torch.serve.batching, ray_tpu_torch.serve.multiplex\n"
+        "import ray_tpu_torch.serve.rpc_client\n"
+        "import ray_tpu_torch.serve.config_file, ray_tpu_torch.serve.llm\n"
+        "import ray_tpu_torch.util.pubsub, ray_tpu_torch._private.usage\n"
+        "# the HTTP proxy imports aiohttp only when it starts\n"
+        "assert 'aiohttp' not in sys.modules\n"
         "from ray_tpu_torch.ops import attention\n"
         "assert attention.KERNELS == ('flash_fwd', 'flash_bwd', "
         "'flash_stats')\n"

@@ -434,6 +434,21 @@ def test_placement_group_reserves_its_cards(clusters):
     util.remove_placement_group(three)
 
 
+def test_a_gpu_count_above_one_must_be_whole(clusters):
+    """C5: ``num_gpus=1.5`` would pin two whole cards but charge 1.5, so
+    the port refuses it where the options resolve, as upstream Ray does;
+    the JAX package (no ``num_gpus``) takes ``resources={"GPU": 1.5}``."""
+    rt = clusters["port"]
+    share = _share_actor(rt)
+    with pytest.raises(ValueError, match="whole"):
+        share.options(num_gpus=1.5)
+    with pytest.raises(ValueError, match="whole"):
+        rt.remote(num_gpus=2.5)(lambda: 0)
+    for ok in (0.5, 1, 2):
+        share.options(num_gpus=ok)
+    _share_actor(clusters["jax"]).options(resources={"GPU": 1.5})
+
+
 @pytest.mark.parametrize("free,want,pick", [
     ({"0": 0.4, "1": 0.4, "2": 0.4, "3": 0.4}, 1.0, None),
     ({"0": 0.4, "1": 0.4, "2": 0.4, "3": 0.4}, 0.6, None),
@@ -563,7 +578,10 @@ VERBATIM = (
     "_private/thread_check.py", "accelerators/accelerator.py",
     "util/scheduling_strategies.py",
     "util/metrics.py", "util/tracing.py", "util/state.py",
-    "util/events.py")
+    "util/events.py", "util/pubsub.py", "serve/batching.py",
+    "serve/multiplex.py", "serve/ingress.py", "serve/rpc_client.py",
+    "serve/config_file.py", "serve/deployment.py", "serve/controller.py",
+    "serve/proxy.py")
 
 
 def _renamed(text: str) -> str:
@@ -595,3 +613,89 @@ def test_runtime_copy_is_the_reference_code_but_for_names(module):
         assert got == want
     else:
         assert _code(got) == _code(want)
+
+
+# ------------------------------------------------------------ GCS restart
+
+
+def _restart_port_gcs():
+    """Crash-restart the port's control plane in place, as
+    ``tests/test_gcs_fault_tolerance.py`` restarts the reference's, and
+    wait for this driver to reconnect."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    w = global_worker()
+    epoch = w._gcs_epoch
+    assert w.request_gcs({"t": "gcs_restart"}, timeout=10).get("ok")
+    deadline = time.time() + 20
+    # the dying instance may still answer a request for a few ms: wait
+    # for the reconnect to the new one
+    while w._gcs_epoch == epoch:
+        assert time.time() < deadline, "driver did not reconnect"
+        time.sleep(0.05)
+    w.cluster_info()
+
+
+def test_restarted_gcs_keeps_its_workers_cards(clusters):
+    """C1. Two 0.7 actors hold one card each: 0.6 GPUs stay free in all,
+    but no card has 0.5 free. After a GCS restart the surviving workers
+    report their cards in their resync hello, so a 0.5 request still
+    waits (the restarted GCS had forgotten the cards, and pinned it to a
+    card an actor uses), and is admitted on the card of the actor that is
+    killed. Runs last: it restarts the module's port cluster."""
+    rt = clusters["port"]
+    share = _share_actor(rt)
+    held = [share.options(num_gpus=0.7).remote() for _ in range(2)]
+    ids = rt.get([a.ids.remote() for a in held], timeout=60)
+    assert sorted(i[0] for i in ids) == ["0", "1"]
+    _restart_port_gcs()
+    assert rt.get([a.ids.remote() for a in held], timeout=60) == ids
+    deadline = time.time() + 20
+    while abs(rt.available_resources().get("GPU", 0.0) - 0.6) > 1e-6:
+        assert time.time() < deadline, rt.available_resources()
+        time.sleep(0.05)  # the workers' resync re-charges their shares
+    late = share.options(num_gpus=0.5).remote()
+    ref = late.ids.remote()
+    ready, _ = rt.wait([ref], num_returns=1, timeout=2.0)
+    assert ready == []
+    rt.kill(held[1])
+    assert rt.get(ref, timeout=60) == ids[1]
+    for a in (held[0], late):
+        rt.kill(a)
+    _wait_gpus_free(rt)
+
+
+def test_restored_bundle_keeps_the_card_its_actor_uses(clusters):
+    """C1 for placement groups: a restarted GCS places the groups it
+    restores once the adoption window closes, taking for each bundle the
+    cards its surviving actors report. The bundle's actor runs on card 1
+    (card 0 was busy when the group was made); after the restart a whole
+    card goes to card 0, not to the card the actor still uses."""
+    rt = clusters["port"]
+    util = ray_tpu_torch.util
+    share = _share_actor(rt)
+    busy = share.options(num_gpus=0.7).remote()
+    assert rt.get(busy.ids.remote(), timeout=60) == ["0"]
+    pg = util.placement_group([{"GPU": 0.5}])
+    assert pg.wait(10)
+    member = share.options(
+        num_gpus=0.5, scheduling_strategy=util.PlacementGroupSchedulingStrategy(
+            placement_group=pg, placement_group_bundle_index=0)).remote()
+    assert rt.get(member.ids.remote(), timeout=60) == ["1"]
+    rt.kill(busy)
+    _wait_gpus_free(rt, want=1.5)
+    _restart_port_gcs()
+    assert rt.get(member.ids.remote(), timeout=60) == ["1"]
+    deadline = time.time() + 30
+    while util.placement_group_table()[pg.id.hex()]["state"] != "ready":
+        assert time.time() < deadline, "the group was not placed again"
+        time.sleep(0.1)
+
+    @rt.remote(num_gpus=1)
+    def whole():
+        return rt.get_gpu_ids()
+
+    assert rt.get(whole.remote(), timeout=60) == ["0"]
+    rt.kill(member)
+    util.remove_placement_group(pg)
+    _wait_gpus_free(rt)
