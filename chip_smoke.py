@@ -190,11 +190,38 @@ Phases, each of which raises on failure (the exit code is then not 0):
      "weights_ref": ref}) through its handle: weights_version 2 and its
      greedy tokens held to an in-process server on the new weights by the
      near-tie rule; the refresh's seconds and GB/s are printed. Serve and
-     the cluster are shut down at the end, failures included.
+     the cluster are shut down at the end, failures included;
+ 19. the data ingest path: its own ray_tpu_torch.init(num_cpus=4,
+     num_gpus=1); the driver first runs phase 8's dense step from seed 7
+     on INGEST_ROWS rows of 2048 int32 tokens (numpy, INGEST_SEED), four
+     batches of INGEST_BATCH in order; then (a) TorchTrainer(datasets=
+     {"train": ds}) trains LLAMA3_1B in one worker with the card, ds
+     being from_numpy over INGEST_BLOCKS blocks of those rows and a
+     map_batches task: the loop takes train.get_dataset_shard("train")
+     .iter_torch_batches(batch_size=INGEST_BATCH, dtypes={"tokens":
+     torch.int64}, drop_last=True), device "auto" for steps 1-2 and
+     train.torch.get_device() for 3-4, every batch equal to its rows on
+     cuda:0 as int64, get_device() cuda:0, each loss within
+     RUNTIME_LOSS_RTOL of the driver's, K2 n_layers launches a step
+     forward and backward; (b) two workers at num_gpus=0.5 on gloo over
+     DDP_ROWS rows of x: float32[16], y and id in DDP_BLOCKS blocks: the
+     shards' ids disjoint and covering, prepare_model's DDP on cuda:0
+     with device_ids [0], the averaged gradients of one step on each
+     rank's first DDP_BATCH rows within DDP_GRAD_RTOL of the driver's
+     over those rows, prepare_data_loader's indices disjoint and
+     covering; (c) 1 GiB of int32 tokens RATE_SHAPE in RATE_BLOCKS
+     blocks through a numpy map_batches and the driver's
+     iter_torch_batches(RATE_BATCH, int64, device="cuda"), every batch's
+     sum on the card equal to numpy's, with the wall time, GB/s into the
+     card and the median ms a batch; then the same stream as numpy
+     batches (no copy) and the driver's first and second read of 256
+     MiB that a task wrote into the store, in GB/s. The card must be
+     free after each trainer; the cluster is shut down at the end,
+     failures included.
 Phases 2 and 6 also hold the kernels at ViT's call (128, 197, 12/12, 64,
 non-causal), phase 2 at each of phase 13's prefills (1, L, 32/8, 128)
 and phase 6 at an ep rank's (1, 2048, 32/8, 128). Phases run
-in the order 1-5, 13, 6-8, 16, 9-11, 14, 12, 15, 17, 18.
+in the order 1-5, 13, 6-8, 16, 9-11, 14, 12, 15, 17, 18, 19.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -3386,15 +3413,16 @@ def drive_route(name, send, probe, requests, vocab, per_route):
             "launches": launches}
 
 
-def _replicas_gone(rt, timeout=120.0):
+def _replicas_gone(rt, timeout=120.0, what="phase 18"):
     """Wait until the cluster's card is free again: the deleted replica's
-    actor has died and its GPU share is back."""
+    (or the trainer's workers') actor has died and its GPU share is
+    back."""
     deadline = time.time() + timeout
     while time.time() < deadline:
         if abs(rt.available_resources().get("GPU", 0.0) - 1.0) < 1e-6:
             return
         time.sleep(0.2)
-    raise AssertionError(f"phase 18: the card was not freed: "
+    raise AssertionError(f"{what}: the card was not freed: "
                          f"{rt.available_resources()}")
 
 
@@ -3556,6 +3584,446 @@ def serve_runtime(models, requests):
         finally:
             ray_tpu_torch.shutdown()
     log(f"phase 18 done in {time.perf_counter() - t_phase} s")
+    return out
+
+
+# Phase 19: the data ingest path. (a) LLAMA3_1B is trained by TorchTrainer
+# in a worker pinned to the card from its dataset shard: INGEST_ROWS rows
+# of 2048 int32 tokens drawn with numpy from INGEST_SEED, in INGEST_BLOCKS
+# blocks through a map_batches task, INGEST_BATCH rows a step, phase 8's
+# weights (seed 7) and step; (b) two workers at num_gpus=0.5 on gloo train
+# a small fp32 regression through prepare_model (DDP) on their shards;
+# (c) the rate at which the driver's iter_torch_batches feeds the card.
+INGEST_ROWS = 16
+INGEST_BLOCKS = 4
+INGEST_BATCH = 4
+INGEST_SEED = 19
+DDP_ROWS, DDP_BLOCKS, DDP_BATCH, DDP_SEED = 4096, 8, 256, 23
+DDP_LOADER_ROWS = 1024
+# (b)'s averaged gradient against the driver's over the same 512 rows:
+# fp32 on both sides, the sums over rows taken in another order (gloo adds
+# the ranks' means), so a few fp32 roundings of the largest element.
+DDP_GRAD_RTOL = 1e-5
+RATE_SHAPE = (131072, 2048)  # 1 GiB of int32 tokens
+RATE_BLOCKS = 64
+RATE_BATCH = 64
+
+
+def ingest_loop(cfg):
+    """Phase 19 (a)'s worker loop (shipped by value): phase 8's dense step
+    on the batches of the worker's dataset shard, steps 1-2 through
+    iter_torch_batches' default device ("auto") and steps 3-4 through an
+    explicit device=train.torch.get_device(); each batch is held to the
+    rows it must be before its step."""
+    import itertools
+    import time
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import models, train
+    from ray_tpu_torch.ops import attention
+
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mcfg = models.LLAMA3_1B
+    device = train.torch.get_device()
+    gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
+    params = models.init_params(mcfg, gen, device="cuda")
+    leaves = models.trainable(params)
+    opt = torch.optim.AdamW(leaves, lr=cfg["lr"], betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.1)
+    rows = np.array(ray_tpu_torch.get(cfg["rows"]))
+    shard = train.get_dataset_shard("train")
+    steps, size, half = cfg["steps"], cfg["batch"], cfg["steps"] // 2
+    kw = dict(batch_size=size, dtypes={"tokens": torch.int64},
+              drop_last=True)
+    hist = {"losses": [], "step_s": [], "wait_s": [], "report_t": [],
+            "enter_t": t_enter, "batches": [], "get_device": str(device),
+            "gpu_ids": ray_tpu_torch.get_gpu_ids()}
+    torch.cuda.synchronize()
+    # ---- the main path: counts reset just before, read just after
+    for c in cfg["counters"]:
+        setattr(attention, c, 0)
+    auto = shard.iter_torch_batches(**kw)
+    explicit = shard.iter_torch_batches(device=train.torch.get_device(),
+                                        **kw)
+    batches = itertools.chain(itertools.islice(auto, half),
+                              itertools.islice(explicit, half, steps))
+    for k in range(steps):
+        t0 = time.perf_counter()
+        tokens = next(batches)["tokens"]
+        hist["wait_s"].append(time.perf_counter() - t0)
+        want = torch.from_numpy(rows[k * size:(k + 1) * size]).to(
+            tokens.device, torch.int64)
+        hist["batches"].append({
+            "device": str(tokens.device), "dtype": str(tokens.dtype),
+            "shape": list(tokens.shape), "equal": bool(torch.equal(
+                tokens, want)), "row_sums": tokens.sum(dim=1).tolist()})
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = models.loss_fn(params, {"tokens": tokens}, mcfg,
+                              attn_impl=None, remat=False)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        hist["step_s"].append(time.perf_counter() - t0)
+        hist["losses"].append(float(loss.detach()))
+        hist["report_t"].append(time.time())
+        train.report({**hist, **{c: getattr(attention, c)
+                                 for c in cfg["counters"]}})
+    # ---- end of the main path (the last report read the counts)
+
+
+def ddp_loop(cfg):
+    """Phase 19 (b)'s worker loop (shipped by value): the rank's shard's
+    ids, one DDP step of a small fp32 model (prepare_model) on its first
+    batch, and the indices prepare_data_loader hands this rank."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.parallel import DistributedDataParallel
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shard = train.get_dataset_shard("train")
+    ids, first = [], None
+    for batch in shard.iter_torch_batches(batch_size=cfg["batch"]):
+        first = first or batch
+        ids += batch["id"].tolist()
+    torch.manual_seed(cfg["seed"])
+    model = train.torch.prepare_model(torch.nn.Sequential(
+        torch.nn.Linear(16, 64), torch.nn.Tanh(), torch.nn.Linear(64, 1)))
+    loss = F.mse_loss(model(first["x"]).squeeze(-1), first["y"])
+    train.torch.backward(loss)
+    loader = train.torch.prepare_data_loader(torch.utils.data.DataLoader(
+        torch.utils.data.TensorDataset(torch.arange(cfg["loader_rows"])),
+        batch_size=32))
+    ddp = isinstance(model, DistributedDataParallel)
+    train.report({
+        "rank": train.get_context().get_world_rank(), "ids": ids,
+        "first_ids": first["id"].tolist(),
+        "batch_device": str(first["x"].device), "ddp": ddp,
+        "device_ids": model.device_ids if ddp else None,
+        "param_devices": sorted({str(p.device)
+                                 for p in model.parameters()}),
+        "get_device": str(train.torch.get_device()),
+        "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+        "grads": [p.grad.cpu().numpy() for p in model.parameters()],
+        "loader_ids": [int(i) for (b,) in loader for i in b]})
+
+
+def ingest_reference(models, rows, seed):
+    """Phase 19 (a)'s losses in process: phase 8's dense step from seed
+    ``seed`` on the same batches of ``rows`` in order."""
+    cfg = models.LLAMA3_1B
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = models.init_params(cfg, gen, device="cuda")
+    leaves = models.trainable(params)
+    opt = torch.optim.AdamW(leaves, lr=LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.1)
+    losses = []
+    for k in range(len(rows) // INGEST_BATCH):
+        tokens = torch.from_numpy(
+            rows[k * INGEST_BATCH:(k + 1) * INGEST_BATCH]).to(
+            "cuda", torch.int64)
+        opt.zero_grad(set_to_none=True)
+        loss = models.loss_fn(params, {"tokens": tokens}, cfg,
+                              attn_impl=None, remat=False)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    del params, leaves, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def ddp_reference(x, y, seed):
+    """Phase 19 (b)'s gradient in process: the same fp32 model on the card
+    and the mean loss over all of ``x``."""
+    import torch.nn.functional as F
+
+    torch.manual_seed(seed)
+    model = torch.nn.Sequential(
+        torch.nn.Linear(16, 64), torch.nn.Tanh(),
+        torch.nn.Linear(64, 1)).to("cuda")
+    loss = F.mse_loss(model(torch.from_numpy(x).cuda()).squeeze(-1),
+                      torch.from_numpy(y).cuda())
+    loss.backward()
+    return [p.grad.cpu().numpy() for p in model.parameters()]
+
+
+def ingest_rate(rd, vocab):
+    """Phase 19 (c): RATE_SHAPE int32 tokens in RATE_BLOCKS blocks through
+    a numpy map_batches, then iter_torch_batches(RATE_BATCH, int64,
+    device="cuda") in the driver; each batch's sum on the card against
+    numpy's. Returns the readings."""
+    import numpy as np
+
+    tokens = np.random.default_rng(INGEST_SEED + 1).integers(
+        0, vocab, RATE_SHAPE, dtype=np.int32)
+    want = tokens.reshape(-1, RATE_BATCH, RATE_SHAPE[1]).sum(
+        axis=(1, 2), dtype=np.int64)
+    per = RATE_SHAPE[0] // RATE_BLOCKS
+    ds = rd.from_numpy([tokens[i * per:(i + 1) * per]
+                        for i in range(RATE_BLOCKS)], column="tokens")
+    ds = ds.map_batches(lambda b: {"tokens": np.minimum(b["tokens"],
+                                                        vocab - 1)})
+    sums, arrive = [], []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for batch in ds.iter_torch_batches(batch_size=RATE_BATCH,
+                                       dtypes={"tokens": torch.int64},
+                                       device="cuda"):
+        t = batch["tokens"]
+        if t.device.type != "cuda" or t.dtype != torch.int64:
+            raise AssertionError(f"phase 19 (c): a batch on {t.device} "
+                                 f"as {t.dtype}")
+        sums.append(t.sum())
+        arrive.append(time.perf_counter())
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = torch.stack(sums).cpu().numpy()
+    if got.shape != want.shape or not (got == want).all():
+        bad = (np.nonzero(got != want)[0][:5] if got.shape == want.shape
+               else got.shape)
+        raise AssertionError(f"phase 19 (c): batch sums differ from "
+                             f"numpy's: {bad}")
+    gaps = np.diff([t0] + arrive) * 1e3
+    # the same stream again as numpy batches, nothing copied: what the
+    # tasks and the store deliver before any copy to the card
+    t1 = time.perf_counter()
+    n = sum(1 for _ in ds.iter_batches(batch_size=RATE_BATCH))
+    numpy_s = time.perf_counter() - t1
+    if n != len(got):
+        raise AssertionError(f"phase 19 (c): {n} numpy batches, "
+                             f"{len(got)} torch batches")
+    return {"wall_s": wall, "gb_per_s": tokens.nbytes / wall / 1e9,
+            "median_batch_ms": float(np.median(gaps)),
+            "device_ms": start.elapsed_time(end), "batches": len(got),
+            "gb": tokens.nbytes / 1e9, "numpy_s": numpy_s,
+            "numpy_gb_per_s": tokens.nbytes / numpy_s / 1e9}
+
+
+def store_read_rate(rt):
+    """Phase 19 (c)'s host side: 256 MiB in 16 blocks written into the
+    store by a task, then read by the driver twice through its views (a
+    64-row batch at a time into one buffer): the first read maps each
+    page of the store into the driver, the second finds it mapped.
+    Returns GB/s of each read."""
+    import numpy as np
+
+    @rt.remote
+    def block(i):
+        return np.full((2048, 2048), i, np.int32)
+
+    refs = [block.remote(i) for i in range(16)]
+    rt.wait(refs, num_returns=len(refs))
+    out = np.empty((RATE_BATCH, 2048), np.int32)
+    rates = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for i, ref in enumerate(refs):
+            a = rt.get(ref)
+            for s in range(0, len(a), RATE_BATCH):
+                np.copyto(out, a[s:s + RATE_BATCH])
+            if out[0, 0] != i:
+                raise AssertionError(f"phase 19 (c): block {i} read "
+                                     f"{out[0, 0]}")
+        rates.append(16 * (2048 * 2048 * 4) / (time.perf_counter() - t0)
+                     / 1e9)
+    return rates
+
+
+def data_ingest(models):
+    """Phase 19 (see the module docstring): its own
+    init(num_cpus=4, num_gpus=1), (a), (b) and (c); the card must be free
+    again after each trainer. Returns (a)'s worker's K2 launches and the
+    readings."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import train
+
+    os.environ.setdefault("RAY_TPU_TORCH_TMPDIR",
+                          tempfile.mkdtemp(prefix="rtt"))
+    storage = tempfile.mkdtemp(prefix="rtt_runs")
+    cfg = models.LLAMA3_1B
+    steps = INGEST_ROWS // INGEST_BATCH
+    rows = np.random.default_rng(INGEST_SEED).integers(
+        0, cfg.vocab_size, (INGEST_ROWS, TRAIN_TOKENS[1]), dtype=np.int32)
+    t_phase = time.perf_counter()
+    want = ingest_reference(models, rows, seed=7)
+    log(f"phase 19 (a): the driver's run of phase 8's step on the {steps} "
+        f"batches: losses {want} in {time.perf_counter() - t_phase} s")
+    out = {}
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1, object_store_memory=8 << 30)
+    try:
+        log(f"phase 19: cluster up in {time.perf_counter() - t0} s")
+        # (a) one worker with the card, fed from its shard
+        vocab = cfg.vocab_size
+        per = INGEST_ROWS // INGEST_BLOCKS
+        ds = rd.from_numpy([rows[i * per:(i + 1) * per]
+                            for i in range(INGEST_BLOCKS)], column="tokens")
+        ds = ds.map_batches(lambda b: {"tokens": np.minimum(b["tokens"],
+                                                            vocab - 1)})
+        trainer = train.TorchTrainer(
+            ingest_loop, train_loop_config={
+                "seed": 7, "lr": LR, "rows": ray_tpu_torch.put(rows),
+                "steps": steps, "batch": INGEST_BATCH,
+                "counters": COUNTERS},
+            datasets={"train": ds},
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(name="ingest", storage_path=storage))
+        t_fit = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - t_fit
+        if result.error is not None:
+            raise AssertionError(f"phase 19 (a): {result.error}")
+        a = result.metrics_all_workers[0]
+        diff = [abs(x - w) / abs(w) for x, w in zip(a["losses"], want)]
+        sums = [r.sum(dtype=np.int64).item() for r in rows]
+        for k, b in enumerate(a["batches"]):
+            if not b["equal"] or b["device"] != "cuda:0" or \
+                    b["dtype"] != "torch.int64" or \
+                    b["row_sums"] != sums[k * INGEST_BATCH:
+                                         (k + 1) * INGEST_BATCH]:
+                raise AssertionError(f"phase 19 (a): batch {k} {b}, rows "
+                                     f"{k * INGEST_BATCH}.. sum to "
+                                     f"{sums[k * INGEST_BATCH:]}")
+        if a["get_device"] != "cuda:0" or a["gpu_ids"] != ["0"]:
+            raise AssertionError(f"phase 19 (a): get_device() "
+                                 f"{a['get_device']}, GPU ids "
+                                 f"{a['gpu_ids']}")
+        if len(diff) != steps or not all(d <= RUNTIME_LOSS_RTOL
+                                         for d in diff):
+            raise AssertionError(f"phase 19 (a): losses {a['losses']}, "
+                                 f"the driver's {want}")
+        counts = {c: a[c] for c in COUNTERS}
+        expect = {"launches": cfg.n_layers * steps,
+                  "bwd_launches": cfg.n_layers * steps, "stats_launches": 0}
+        if counts != expect:
+            raise AssertionError(f"phase 19 (a): launches {counts}, "
+                                 f"expected {expect}")
+        step_ms = [x * 1e3 for x in a["step_s"]]
+        log(f"phase 19 (a): {steps} batches of {INGEST_BATCH} x "
+            f"{TRAIN_TOKENS[1]} int32 tokens from {INGEST_BLOCKS} blocks "
+            f"through map_batches, each equal to its rows and on cuda:0 "
+            f"as int64 (steps 1-2 device='auto', 3-4 get_device()); "
+            f"get_device() {a['get_device']}; losses {a['losses']}, the "
+            f"driver's {want}, relative differences {diff}; launches "
+            f"{counts}; ms/step {step_ms} (steps 2-4 mean "
+            f"{sum(step_ms[1:]) / len(step_ms[1:])}); batch waits ms "
+            f"{[x * 1e3 for x in a['wait_s']]}; worker start "
+            f"{a['enter_t'] - t_fit} s and first report "
+            f"{a['report_t'][0] - t_fit} s after fit(), which took "
+            f"{fit_s} s")
+        out["a"] = dict(counts, losses=a["losses"], step_ms=step_ms,
+                        first_report_s=a["report_t"][0] - t_fit)
+        _replicas_gone(ray_tpu_torch, what="phase 19 (a)")
+
+        # (b) two workers sharing the card over gloo
+        rng = np.random.default_rng(DDP_SEED)
+        x = rng.standard_normal((DDP_ROWS, 16)).astype(np.float32)
+        y = (x @ rng.standard_normal(16) + 0.1 * rng.standard_normal(
+            DDP_ROWS)).astype(np.float32)
+        ids = np.arange(DDP_ROWS)
+        per = DDP_ROWS // DDP_BLOCKS
+        ddp_ds = rd.from_blocks([
+            {"x": x[i * per:(i + 1) * per], "y": y[i * per:(i + 1) * per],
+             "id": ids[i * per:(i + 1) * per]} for i in range(DDP_BLOCKS)])
+        t_fit = time.time()
+        result = train.TorchTrainer(
+            ddp_loop, train_loop_config={
+                "batch": DDP_BATCH, "seed": DDP_SEED,
+                "loader_rows": DDP_LOADER_ROWS},
+            datasets={"train": ddp_ds},
+            scaling_config=train.ScalingConfig(num_workers=2, use_gpu=True,
+                                               gpus_per_worker=0.5),
+            run_config=train.RunConfig(name="ddp", storage_path=storage),
+            torch_backend="gloo").fit()
+        fit_s = time.time() - t_fit
+        if result.error is not None:
+            raise AssertionError(f"phase 19 (b): {result.error}")
+        r0, r1 = (result.metrics_all_workers[i] for i in (0, 1))
+        s0, s1 = set(r0["ids"]), set(r1["ids"])
+        if s0 & s1 or s0 | s1 != set(range(DDP_ROWS)) or \
+                len(r0["ids"]) + len(r1["ids"]) != DDP_ROWS:
+            raise AssertionError(f"phase 19 (b): shards of "
+                                 f"{len(r0['ids'])} and {len(r1['ids'])} "
+                                 f"rows, {len(s0 & s1)} shared")
+        placed = {"ddp": True, "device_ids": [0],
+                  "param_devices": ["cuda:0"], "batch_device": "cuda:0",
+                  "get_device": "cuda:0", "gpu_ids": ["0"]}
+        for r in (r0, r1):
+            got = {k: r[k] for k in placed}
+            if got != placed:
+                raise AssertionError(f"phase 19 (b): rank {r['rank']}: "
+                                     f"{got}, expected {placed}")
+        picked = r0["first_ids"] + r1["first_ids"]
+        ref = ddp_reference(x[picked], y[picked], DDP_SEED)
+        gaps = []
+        for got0, got1, w in zip(r0["grads"], r1["grads"], ref):
+            scale = float(np.abs(w).max())
+            gaps.append(max(float(np.abs(got0 - w).max()),
+                            float(np.abs(got1 - w).max())) / scale)
+        if not all(g <= DDP_GRAD_RTOL for g in gaps):
+            raise AssertionError(f"phase 19 (b): gradients against the "
+                                 f"driver's over {len(picked)} rows: "
+                                 f"relative gaps {gaps}")
+        l0, l1 = set(r0["loader_ids"]), set(r1["loader_ids"])
+        if l0 & l1 or l0 | l1 != set(range(DDP_LOADER_ROWS)):
+            raise AssertionError(f"phase 19 (b): prepare_data_loader gave "
+                                 f"{len(l0)} and {len(l1)} indices, "
+                                 f"{len(l0 & l1)} shared")
+        log(f"phase 19 (b): two workers at num_gpus=0.5 over gloo, both "
+            f"pinned to {r0['gpu_ids']}: shards of {len(s0)} and "
+            f"{len(s1)} disjoint ids covering {DDP_ROWS}; prepare_model "
+            f"-> DDP on cuda:0 with device_ids {r0['device_ids']}; the "
+            f"averaged gradients against the driver's over {len(picked)} "
+            f"rows: largest relative gaps {gaps} (limit {DDP_GRAD_RTOL}); "
+            f"prepare_data_loader: {len(l0)} + {len(l1)} disjoint indices "
+            f"of {DDP_LOADER_ROWS}; fit() took {fit_s} s")
+        out["b"] = {"grad_gaps": gaps, "fit_s": fit_s}
+        _replicas_gone(ray_tpu_torch, what="phase 19 (b)")
+
+        # (c) the ingest rate into the card, in the driver
+        rate = ingest_rate(rd, vocab)
+        rate["store_read_gb_per_s"] = store_read_rate(ray_tpu_torch)
+        log(f"phase 19 (c): {rate['gb']} GB of int32 tokens "
+            f"{list(RATE_SHAPE)} in {RATE_BLOCKS} blocks through "
+            f"map_batches and iter_torch_batches(batch_size={RATE_BATCH}, "
+            f"int64, device='cuda'): {rate['batches']} batches, every sum "
+            f"equal to numpy's; {rate['wall_s']} s = {rate['gb_per_s']} "
+            f"GB/s into the card; median {rate['median_batch_ms']} ms a "
+            f"batch; {rate['device_ms']} ms between the card's first and "
+            f"last events. The same stream as numpy batches, no copy: "
+            f"{rate['numpy_s']} s = {rate['numpy_gb_per_s']} GB/s. The "
+            f"driver reading 256 MiB of task-written blocks through its "
+            f"store views: first read, then second, GB/s "
+            f"{rate['store_read_gb_per_s']}")
+        out["c"] = rate
+    except BaseException:
+        log(_session_log_tails())
+        raise
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19 done in {out['phase_s']} s")
     return out
 
 
@@ -3763,6 +4231,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving = serve_runtime(models, requests)
 
+    # Phase 19: the data ingest path into the trainer's workers.
+    gc.collect()
+    torch.cuda.empty_cache()
+    ingest = data_ingest(models)["a"]
+
     def sharded_launches(counter):
         """Phase 12's launches of a counter: per rank by run, and in all."""
         by_run = {f"phase 12 {name}, per rank": [g[counter] for g in got]
@@ -3781,6 +4254,7 @@ def main() -> int:
                     + k2["bwd_launches"] + uly["bwd_launches"]
                     + mixtral_train["bwd_launches"]
                     + vit_train["bwd_launches"] + runtime["bwd_launches"]
+                    + ingest["bwd_launches"]
                     + sharded_launches("bwd_launches")[1])
     mosaic = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [{
@@ -3794,7 +4268,8 @@ def main() -> int:
         + uly["launches"] + mixtral_serve["launches"]
         + mixtral_train["launches"] + vit_train["launches"]
         + vit_forward_launches + runtime["launches"]
-        + serving["launches"] + sharded_launches("launches")[1],
+        + ingest["launches"] + serving["launches"]
+        + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
                              "train_remat_chunked": remat["launches"],
@@ -3807,6 +4282,7 @@ def main() -> int:
                              "vit_train": vit_train["launches"],
                              "vit_forward": vit_forward_launches,
                              "runtime_train_worker": runtime["launches"],
+                             "ingest_train_worker": ingest["launches"],
                              "serve_replica": serving["launches"],
                              **sharded_launches("launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -3850,6 +4326,8 @@ def main() -> int:
                                  "vit_train": vit_train["bwd_launches"],
                                  "runtime_train_worker":
                                      runtime["bwd_launches"],
+                                 "ingest_train_worker":
+                                     ingest["bwd_launches"],
                                  **sharded_launches("bwd_launches")[0]},
             "max_abs_err": max(r[g]["max_abs_err"] for r in bwd_rows
                                for g in (("dk", "dv") if name == "dkdv"

@@ -3486,6 +3486,17 @@ class GcsServer:
                 node.idle_workers.remove(worker_id)
             except ValueError:
                 pass
+        # Leases the dead worker held for its own nested submissions (a
+        # train worker streaming its dataset shard) die with it, as an
+        # exiting driver's do (``_on_driver_exit``): its idle-return timer
+        # died with the process.
+        held = [w for w in self.workers.values()
+                if w.leased_to is not None
+                and w.leased_to.worker_id == worker_id]
+        for w in held:
+            self._release_lease(w)
+        if held:
+            self._wake_scheduler()
         # Actor death
         if worker.actor_id is not None:
             await self._on_actor_worker_death(worker.actor_id, worker)

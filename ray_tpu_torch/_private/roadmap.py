@@ -7,7 +7,6 @@ Each place that would reach one raises :func:`not_ported`, naming the
 from __future__ import annotations
 
 ITEMS = {
-    "data": "A7 (data, with C3's second fix)",
     "dag": "A8 (dag and compiled graphs)",
     "gang": "A9 (gang fault plane and the MPMD actor driver)",
     "tune": "A10 (tune)",

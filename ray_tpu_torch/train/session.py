@@ -136,7 +136,9 @@ def get_checkpoint() -> Optional[Checkpoint]:
 
 
 def get_dataset_shard(name: str = "train"):
-    """Not ported yet: dataset shards come with ``data``."""
-    from .._private.roadmap import not_ported
-
-    raise not_ported("get_dataset_shard", "data")
+    s = get_session()
+    shard = s.dataset_shards.get(name)
+    if shard is None:
+        raise KeyError(f"no dataset shard named {name!r}; available: "
+                       f"{sorted(s.dataset_shards)}")
+    return shard

@@ -113,10 +113,6 @@ class TorchTrainer:
                  dataset_config: Optional[Any] = None,
                  resume_from_checkpoint: Optional[Checkpoint] = None,
                  torch_backend: Optional[str] = None):
-        if datasets:
-            from .._private.roadmap import not_ported
-
-            raise not_ported("TorchTrainer(datasets=...)", "data")
         self.torch_backend = torch_backend
         self.train_loop = train_loop_per_worker
         self.train_loop_config = train_loop_config
@@ -193,6 +189,18 @@ class TorchTrainer:
                           error=e)
         try:
             fn_blob = cloudpickle.dumps(self.train_loop)
+            # Pre-split datasets into per-worker shards
+            shard_refs: List[Dict[str, Any]] = [
+                {} for _ in range(n_workers)]
+            for name, ds in self.datasets.items():
+                if hasattr(ds, "streaming_split") and \
+                        self.dataset_config.should_split(name):
+                    shards = ds.streaming_split(n_workers)
+                    for i, sh in enumerate(shards):
+                        shard_refs[i][name] = sh
+                else:
+                    for i in range(n_workers):
+                        shard_refs[i][name] = ds
             futs = []
             for rank, w in enumerate(group.workers):
                 session_kwargs = dict(
@@ -200,7 +208,8 @@ class TorchTrainer:
                     local_rank=0, run_name=run_name, storage_path=storage,
                     restore_path=restore_path)
                 futs.append(w.run.remote(fn_blob, self.train_loop_config,
-                                         session_kwargs, collector))
+                                         session_kwargs, collector,
+                                         shard_refs[rank]))
             outs = ray_tpu_torch.get(futs)
             state = ray_tpu_torch.get(collector.state.remote())
             err = self._first_failure(outs)

@@ -476,8 +476,13 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch.serve.rpc_client\n"
         "import ray_tpu_torch.serve.config_file, ray_tpu_torch.serve.llm\n"
         "import ray_tpu_torch.util.pubsub, ray_tpu_torch._private.usage\n"
-        "# the HTTP proxy imports aiohttp only when it starts\n"
-        "assert 'aiohttp' not in sys.modules\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.data.preprocessors\n"
+        "import ray_tpu_torch.train.torch, ray_tpu_torch.train.huggingface\n"
+        "# the HTTP proxy imports aiohttp only when it starts, data loads\n"
+        "# Arrow and pandas only at its edges, and train.huggingface loads\n"
+        "# transformers only for an HF Trainer\n"
+        "for m in ('aiohttp', 'pyarrow', 'pandas', 'transformers'):\n"
+        "    assert m not in sys.modules, m\n"
         "from ray_tpu_torch.ops import attention\n"
         "assert attention.KERNELS == ('flash_fwd', 'flash_bwd', "
         "'flash_stats')\n"

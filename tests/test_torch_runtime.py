@@ -249,6 +249,33 @@ def test_actors_match(clusters):
     assert port_out["killed"] == ("raised", "ActorDiedError")
 
 
+def test_a_dead_workers_task_leases_come_back(clusters):
+    """An actor killed while it holds leases for its own tasks (a train
+    worker that streamed its dataset shard, killed by ``fit()``'s
+    teardown) gives their CPUs back, as an exiting driver's leases do.
+    The JAX package's GCS keeps them, and its cluster is left without
+    CPUs."""
+    rt = ray_tpu_torch
+
+    @rt.remote
+    def inc(x):
+        return x + 1
+
+    @rt.remote
+    class Submitter:
+        def go(self, n):
+            return sum(rt.get([inc.remote(i) for i in range(n)]))
+
+    total = rt.cluster_resources()["CPU"]
+    a = Submitter.remote()
+    assert rt.get(a.go.remote(40)) == sum(range(1, 41))
+    rt.kill(a)
+    deadline = time.time() + 20
+    while rt.available_resources().get("CPU", 0.0) < total:
+        assert time.time() < deadline, rt.available_resources()
+        time.sleep(0.1)
+
+
 # -------------------------------------------------- placement groups
 
 
