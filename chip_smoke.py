@@ -124,7 +124,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
      outputs' cotangent summed over pp) must break the group rule; in (c)
      a 4-layer small fp32 Llama on pp = 4 (M = 4) and pp = 2 x tp = 2 (M =
      2) against the CPU; and (d) also runs the dryrun's pipeline (pp = 2 x
-     tp = 2) and MoE (ep = 2 x tp = 2) parts;
+     tp = 2) and MoE (ep = 2 x tp = 2) parts, and its MPMD part (three
+     stage actors of the runtime on the CPU, 8 microbatches, 1F1B,
+     against the single program's loss);
  13. Mixtral serving: Mixtral-8x7B's widths at 16 of its 32 layers (all
      32 do not fit the card), random weights, mixtral_generate_greedy on
      prompts of 40, 200 and 1024 tokens, 32 new tokens each (K1 launches
@@ -217,11 +219,39 @@ Phases, each of which raises on failure (the exit code is then not 0):
      batches (no copy) and the driver's first and second read of 256
      MiB that a task wrote into the store, in GB/s. The card must be
      free after each trainer; the cluster is shut down at the end,
-     failures included.
+     failures included;
+ 20. the MPMD pipeline: its own ray_tpu_torch.init(num_cpus=4,
+     num_gpus=1, object_store_memory=8 << 30); MPMDPipeline trains
+     LLAMA3_1B at full width and depth (phase 8's weights, seed 7, and
+     tokens) as MPMD_STAGES stage actors of 8 layers, each at the
+     default placement's num_gpus=0.5 on the one card (no stage_options),
+     MPMD_MICROBATCHES microbatches of one row, 1F1B,
+     the activations and cotangents hopping between the actors through
+     the compiled DAG: (a) one grad_check_step, then 1 + 2 AdamW steps:
+     each stage's get_gpu_ids() ["0"], the first loss within 1e-2 and the
+     whole gradient norm within 1% of phase 8's dense run and each
+     group's norm within GROUP_RTOL, the later losses below the first,
+     live_vjp_counts() [0, 0] and the store's used bytes back at their
+     level after every step (the hops ride the actors' connections, so
+     this holds the stages' argument trees and results, not the hops),
+     and each stage's K2 launches at
+     mpmd_expect's count (its layers x microbatches x passes, forward,
+     remat's recompute and backward); ms/step beside phase 8's and phase
+     16's, the bubble fraction, each stage's busy seconds, the bytes of
+     a hop as the stages sent them and each stage's peak memory (their
+     probe()) are printed; (b) the same
+     pipeline as gang MPMD_GANG, stage 1's mpmd.boundary.send armed
+     (stage_env) to kill its process at its first send of step 2: step
+     1, save_checkpoint, then step 2, which must fail with
+     PipelineMemberLost stamped with the pipeline's generation within
+     MPMD_DETECT_S; from_checkpoint under the same gang
+     lands at generation + 1 and its step 2 loss equals (a)'s bit for
+     bit. The card must be free after each pipeline; the cluster is shut
+     down at the end, failures included.
 Phases 2 and 6 also hold the kernels at ViT's call (128, 197, 12/12, 64,
 non-causal), phase 2 at each of phase 13's prefills (1, L, 32/8, 128)
 and phase 6 at an ep rank's (1, 2048, 32/8, 128). Phases run
-in the order 1-5, 13, 6-8, 16, 9-11, 14, 12, 15, 17, 18, 19.
+in the order 1-5, 13, 6-8, 16, 9-11, 14, 12, 15, 17, 18, 19, 20.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -2971,7 +3001,7 @@ def sharded_training(models, parallel, attention, tokens, phase8,
                                  f"expected {expect}")
     t0 = time.perf_counter()
     losses = parallel.dryrun_multichip(WORLD, device="cuda", backend="gloo")
-    if set(losses) != {"sharded", "pipeline", "moe"}:
+    if set(losses) != {"sharded", "pipeline", "moe", "mpmd"}:
         raise AssertionError(f"phase 12 (d): the dryrun ran {sorted(losses)}")
     log(f"phase 12 (d) dryrun_multichip({WORLD}) on this card (gloo): losses "
         f"{json.dumps(losses)} in {time.perf_counter() - t0} s")
@@ -4027,6 +4057,259 @@ def data_ingest(models):
     return out
 
 
+# Phase 20: the MPMD pipeline of stage actors on the card. LLAMA3_1B's 16
+# layers as 2 stages of 8, each a stage actor at num_gpus=0.5 (both pinned
+# to card "0"); phase 8's tokens [4, 2048] as MPMD_MICROBATCHES
+# microbatches of one row, 1F1B.
+MPMD_STAGES = 2
+MPMD_MICROBATCHES = 4
+MPMD_STEPS = (1, 2)  # warm-up, timed AdamW steps after the grad check
+MPMD_GANG = "phase20"
+# A stage's seconds from a stage's kill to the typed error must stay far
+# under the compiled chain's 300 s result timeout: the gang push, not a
+# timeout, must have raised it.
+MPMD_DETECT_S = 30.0
+
+
+def mpmd_expect(n_layers: int, stages: int, microbatches: int,
+                passes: int) -> dict:
+    """K2's launches by one stage actor in ``passes`` forward-and-backward
+    passes of the pipeline: its n_layers / stages layers run once per
+    microbatch forward, once more in remat's recompute (stage_forward and
+    stage_loss take remat), and once backward."""
+    per = n_layers // stages * microbatches * passes
+    return {"launches": 2 * per, "bwd_launches": per, "stats_launches": 0}
+
+
+def _probe(pipe, reset: bool = False) -> list:
+    """Each stage actor's ``probe`` (its pid, device, GPU ids, peak
+    memory, kernel counts, hops sent and gradient leaf squares), in stage
+    order; ``reset`` zeroes the peaks, counts and hop tallies after."""
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get([s.probe.remote(reset) for s in pipe.stages],
+                             timeout=120)
+
+
+def _store_back_to(worker, level: int, what: str, timeout: float = 30.0):
+    """The store's used bytes once at or below ``level`` (C7's hold: a
+    step leaves nothing of the stages' arguments and results in the store;
+    the hops do not pass through it); raises when they stay above."""
+    deadline = time.time() + timeout
+    while True:
+        used = worker.store.stats()["bytes_in_use"]
+        if used <= level:
+            return used
+        if time.time() > deadline:
+            raise AssertionError(f"{what}: the store holds {used} bytes, "
+                                 f"{level} before the step")
+        gc.collect()
+        time.sleep(0.1)
+
+
+def mpmd_group_sq(stage_sq, layer_counts) -> dict:
+    """``llama_group_sq``'s groups from the stages' leaf squares (their
+    probes' ``grad_sq``), each stage's layers at their global index."""
+    out = {"embedding": 0.0, "norm": 0.0, "lm_head": 0.0, "layers": []}
+    for sq, n in zip(stage_sq, layer_counts):
+        layers = [0.0] * n
+        for path, v in sq.items():
+            head, *rest = path.split("/")
+            if head == "layers":
+                layers[int(rest[0])] += v
+            else:
+                out[head] += v
+        out["layers"] += layers
+    return out
+
+
+def mpmd_training(models, tokens, dense, lockstep):
+    """Phase 20 (see the module docstring): its own
+    init(num_cpus=4, num_gpus=1, object_store_memory=8 << 30); (a) the
+    training run, held to phase 8's dense run; (b) the fault plane: a
+    stage killed mid-step by its boundary failpoint, PipelineMemberLost in
+    push time, the re-form from step 1's checkpoint at generation + 1 with
+    (a)'s step 2 loss bit for bit. The card must be free after each
+    pipeline; the cluster is shut down at the end, failures included.
+    Returns (a)'s launches by stage and the readings."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.parallel import mpmd_pipeline as mpmd
+
+    os.environ.setdefault("RAY_TPU_TORCH_TMPDIR",
+                          tempfile.mkdtemp(prefix="rtt"))
+    ckdir = tempfile.mkdtemp(prefix="rtt_mpmd")
+    cfg = models.LLAMA3_1B
+    counts = mpmd.stage_layer_counts(cfg.n_layers, MPMD_STAGES)
+    params = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    host = _tree_map(lambda t: t.detach().cpu(), params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = tokens.cpu()
+    # the pipeline's default placement: each stage half of the one card
+    opts = mpmd.stage_placement(torch.device("cuda"), MPMD_STAGES, 1.0)
+    if opts != [{"num_gpus": 0.5}] * MPMD_STAGES:
+        raise AssertionError(f"phase 20: default stage options {opts}")
+    kw = dict(n_stages=MPMD_STAGES, n_microbatches=MPMD_MICROBATCHES,
+              lr=LR, schedule="1f1b")
+    out = {}
+    t_phase = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1, object_store_memory=8 << 30)
+    try:
+        w = global_worker()
+        log(f"phase 20: cluster up in {time.perf_counter() - t_phase} s")
+        # (a) the training run
+        t0 = time.perf_counter()
+        pipe = mpmd.MPMDPipeline(cfg, host, **kw)
+        try:
+            form_s = time.perf_counter() - t0
+            passes = 1 + sum(MPMD_STEPS)
+            # ---- the main path: counts reset just before, read just after
+            info = _probe(pipe, reset=True)
+            if any(i["gpu_ids"] != ["0"] or i["device"] != "cuda:0"
+                   for i in info):
+                raise AssertionError(f"phase 20 (a): stages on {info}")
+            level = w.store.stats()["bytes_in_use"]
+            first = pipe.grad_check_step(tokens)
+            vjps = [pipe.live_vjp_counts()]
+            norm = math.sqrt(sum(n * n for n in pipe.grad_norms()))
+            group_sq = mpmd_group_sq([i["grad_sq"] for i in _probe(pipe)],
+                                     counts)
+            check_stats = dict(pipe.last_step_stats)
+            pipe._reset_step_state()
+            store = [_store_back_to(w, level, "phase 20 (a) grad check")]
+            losses, step_s, stats = [], [], []
+            for _ in range(sum(MPMD_STEPS)):
+                level = w.store.stats()["bytes_in_use"]
+                t1 = time.perf_counter()
+                losses.append(pipe.step(tokens))
+                step_s.append(time.perf_counter() - t1)
+                vjps.append(pipe.live_vjp_counts())
+                stats.append(dict(pipe.last_step_stats))
+                store.append(_store_back_to(w, level, "phase 20 (a) step"))
+            info = _probe(pipe)
+            # ---- end of the main path
+            launches = [{c: i["counts"][c] for c in COUNTERS} for i in info]
+            hop_bytes = [i["bytes_sent"] / i["hops_sent"] for i in info]
+        finally:
+            pipe.teardown()
+        _replicas_gone(ray_tpu_torch, what="phase 20 (a)")
+        hold_pipelined("phase 20 (a)", first, norm, group_sq, dense,
+                       MPMD_STAGES)
+        if any(v != [0] * MPMD_STAGES for v in vjps):
+            raise AssertionError(f"phase 20 (a): live VJPs after each "
+                                 f"step {vjps}")
+        # the first AdamW step's loss is the grad check's, of the same
+        # weights; the later ones fall below it
+        if losses[0] != first or not all(math.isfinite(x) and x < first
+                                         for x in losses[1:]):
+            raise AssertionError(f"phase 20 (a): losses {losses}, the grad "
+                                 f"check's {first}")
+        expect = mpmd_expect(cfg.n_layers, MPMD_STAGES, MPMD_MICROBATCHES,
+                             passes)
+        if any(c != expect for c in launches):
+            raise AssertionError(f"phase 20 (a): launches by stage "
+                                 f"{launches}, expected {expect} each")
+        timed = step_s[MPMD_STEPS[0]:]
+        ms = sum(timed) / len(timed) * 1e3
+        lock = lockstep["pp=4 lockstep, M=4"]["step_ms"]
+        log(f"phase 20 (a): {MPMD_STAGES} stage actors of {counts} layers "
+            f"pinned to {[i['gpu_ids'] for i in info]} on "
+            f"{[i['device'] for i in info]}, formed in {form_s} s; grad "
+            f"check loss {first} (bubble {check_stats['bubble_fraction']}); "
+            f"losses {losses}; live VJPs after each step {vjps}; store "
+            f"bytes after each step {store}; K2 launches by stage "
+            f"{launches} (expected {expect}: {counts[0]} layers x "
+            f"{MPMD_MICROBATCHES} microbatches x {passes} passes, forward, "
+            f"remat's recompute and backward)")
+        log(f"phase 20 (a): {ms} ms/step over {len(timed)} timed steps "
+            f"({[x * 1e3 for x in step_s]}), phase 8's dense "
+            f"{dense['step_ms']}, phase 16's pp=4 lockstep M=4 {lock}; "
+            f"bubble fraction {[s['bubble_fraction'] for s in stats]} "
+            f"(analytic {bubble(MPMD_STAGES, MPMD_MICROBATCHES)}); stage "
+            f"busy s {[s['stage_busy_s'] for s in stats]}; wall s "
+            f"{[s['wall_s'] for s in stats]}; a hop's bytes as each stage "
+            f"sent them {hop_bytes}; peak memory by stage "
+            f"{[i['peak_bytes'] / 2**30 for i in info]} GiB")
+        out["a"] = dict(first=first, losses=losses, step_ms=ms,
+                        bubble=[s["bubble_fraction"] for s in stats],
+                        busy=[s["stage_busy_s"] for s in stats],
+                        peak_gib=[i["peak_bytes"] / 2**30 for i in info],
+                        hop_bytes=hop_bytes, launches_by_stage=launches,
+                        **{c: sum(x[c] for x in launches)
+                           for c in COUNTERS})
+
+        # (b) the fault plane: stage 1 kills its own process at its first
+        # boundary send of step 2 (its sends of step 1 are hits 1-M)
+        kill = f"mpmd.boundary.send.s1=hit{MPMD_MICROBATCHES + 1}:kill"
+        pipe = mpmd.MPMDPipeline(
+            cfg, host, gang_name=MPMD_GANG,
+            checkpoint_dir=os.path.join(ckdir, "b"),
+            stage_env={"RAY_TPU_TORCH_FAILPOINTS": kill,
+                       "RAY_TPU_TORCH_FAILPOINT_SEED": "20"}, **kw)
+        try:
+            gen = pipe.generation
+            killed = _probe(pipe)[1]["pid"]
+            step1 = pipe.step(tokens)
+            t1 = time.perf_counter()
+            ckpt = pipe.save_checkpoint()
+            save_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            try:
+                pipe.step(tokens)
+            except mpmd.PipelineMemberLost as e:
+                lost, detect_s = e, time.perf_counter() - t1
+            else:
+                raise AssertionError("phase 20 (b): step 2 ran on with "
+                                     "stage 1 killed")
+        finally:
+            pipe.teardown()
+        _replicas_gone(ray_tpu_torch, what="phase 20 (b) killed pipeline")
+        if lost.generation != gen or lost.lost_stages != [1] or \
+                lost.checkpoint_path != ckpt or not detect_s < MPMD_DETECT_S:
+            raise AssertionError(f"phase 20 (b): {lost!r} after {detect_s} "
+                                 f"s, generation {gen}, checkpoint {ckpt}")
+        t1 = time.perf_counter()
+        pipe = mpmd.MPMDPipeline.from_checkpoint(ckpt, cfg,
+                                                 gang_name=MPMD_GANG, **kw)
+        try:
+            reform_s = time.perf_counter() - t1
+            regen = pipe.generation
+            step2 = pipe.step(tokens)
+        finally:
+            pipe.teardown()
+        _replicas_gone(ray_tpu_torch, what="phase 20 (b) re-formed pipeline")
+        if regen != gen + 1 or step2 != losses[1] or step1 != losses[0]:
+            raise AssertionError(
+                f"phase 20 (b): generation {gen} -> {regen}; step 1 loss "
+                f"{step1} ((a)'s {losses[0]}), step 2 after the re-form "
+                f"{step2} ((a)'s {losses[1]})")
+        log(f"phase 20 (b): gang {MPMD_GANG!r} at generation {gen}; step 1 "
+            f"loss {step1} equals (a)'s; merged checkpoint in {save_s} s; "
+            f"stage 1 (pid {killed}) killed at its first boundary send of "
+            f"step 2: {type(lost).__name__} (lost stages "
+            f"{lost.lost_stages}, generation {lost.generation}) in "
+            f"{detect_s} s (the chain's result timeout is 300 s); re-formed "
+            f"from the checkpoint at generation {regen} in {reform_s} s; "
+            f"its step 2 loss {step2} equals (a)'s {losses[1]} bit for bit")
+        out["b"] = dict(detect_s=detect_s, save_s=save_s, reform_s=reform_s,
+                        generations=[gen, regen])
+    except BaseException:
+        log(_session_log_tails())
+        raise
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20 done in {out['phase_s']} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4236,6 +4519,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     ingest = data_ingest(models)["a"]
 
+    # Phase 20: the MPMD pipeline, two stage actors sharing the card.
+    gc.collect()
+    torch.cuda.empty_cache()
+    mpmd_run = mpmd_training(models, train_tokens, dense, lockstep)["a"]
+
     def sharded_launches(counter):
         """Phase 12's launches of a counter: per rank by run, and in all."""
         by_run = {f"phase 12 {name}, per rank": [g[counter] for g in got]
@@ -4254,7 +4542,7 @@ def main() -> int:
                     + k2["bwd_launches"] + uly["bwd_launches"]
                     + mixtral_train["bwd_launches"]
                     + vit_train["bwd_launches"] + runtime["bwd_launches"]
-                    + ingest["bwd_launches"]
+                    + ingest["bwd_launches"] + mpmd_run["bwd_launches"]
                     + sharded_launches("bwd_launches")[1])
     mosaic = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [{
@@ -4268,7 +4556,7 @@ def main() -> int:
         + uly["launches"] + mixtral_serve["launches"]
         + mixtral_train["launches"] + vit_train["launches"]
         + vit_forward_launches + runtime["launches"]
-        + ingest["launches"] + serving["launches"]
+        + ingest["launches"] + serving["launches"] + mpmd_run["launches"]
         + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
@@ -4284,6 +4572,9 @@ def main() -> int:
                              "runtime_train_worker": runtime["launches"],
                              "ingest_train_worker": ingest["launches"],
                              "serve_replica": serving["launches"],
+                             **{f"mpmd_stage_{i}": c["launches"]
+                                for i, c in
+                                enumerate(mpmd_run["launches_by_stage"])},
                              **sharded_launches("launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -4328,6 +4619,9 @@ def main() -> int:
                                      runtime["bwd_launches"],
                                  "ingest_train_worker":
                                      ingest["bwd_launches"],
+                                 **{f"mpmd_stage_{i}": c["bwd_launches"]
+                                    for i, c in enumerate(
+                                        mpmd_run["launches_by_stage"])},
                                  **sharded_launches("bwd_launches")[0]},
             "max_abs_err": max(r[g]["max_abs_err"] for r in bwd_rows
                                for g in (("dk", "dv") if name == "dkdv"

@@ -100,6 +100,8 @@ def _res_add(avail: Dict[str, float], req: Dict[str, float]):
 # A staged copy of a node's resources carries each card's unleased share
 # under this prefix + its id, so bundle staging places cards as well.
 _CARD = "GPU#"
+# How long a store block stays unreferenced before it is freed (_doom).
+_ZERO_REF_FREE_S = 2.0
 
 
 def _gpu_pick(free: Dict[str, float], want: float,
@@ -620,6 +622,9 @@ class GcsServer:
         # grow this forever.
         self._early_ref_deltas: Dict[ObjectID, int] = {}
         self.zero_ref_lru: "OrderedDict[ObjectID, int]" = OrderedDict()
+        # Unreferenced store blocks, each with the time it is freed (_doom).
+        self._doomed: Dict[ObjectID, float] = {}
+        self._doom_timer: Optional[asyncio.TimerHandle] = None
         self.shm_bytes = 0
         self.actors: Dict[ActorID, ActorRecord] = ShardedDict(nshards)
         self.named_actors: Dict[Tuple[str, str], ActorID] = {}
@@ -2263,11 +2268,48 @@ class GcsServer:
                         self._early_ref_deltas.pop(
                             next(iter(self._early_ref_deltas)))
                 continue
+            was = entry.refcount
             entry.refcount += delta
             if entry.refcount <= 0 and entry.ready:
                 self._lru_touch(entry)
+                if was > 0 and entry.inline is None:
+                    self._doom(oid)
             elif entry.refcount > 0:
                 self.zero_ref_lru.pop(oid, None)
+                self._doomed.pop(oid, None)
+
+    def _doom(self, oid: ObjectID):
+        """The last reference to a store block went: free it once it has
+        stayed unreferenced for ``_ZERO_REF_FREE_S``, as the reference's
+        owner frees an out-of-scope object. Left in the LRU until the
+        store is full, blocks of two sizes (a task's argument bundle is a
+        few hundred bytes smaller than the block it returns) fragment the
+        arena until no freed hole fits the next block, and the store
+        fills. Not at once: a borrower's +1 may reach this directory after
+        the -1 of a reader that got the ref over an actor connection (an
+        async actor replies before its increfs leave), and a caller's
+        holder-less registration may land before the holder's own; both
+        come within milliseconds."""
+        self._doomed.pop(oid, None)
+        self._doomed[oid] = time.monotonic() + _ZERO_REF_FREE_S
+        if self._doom_timer is None:
+            self._doom_timer = asyncio.get_running_loop().call_later(
+                _ZERO_REF_FREE_S, self._free_doomed)
+
+    def _free_doomed(self):
+        self._doom_timer = None
+        now = time.monotonic()
+        while self._doomed:
+            oid, due = next(iter(self._doomed.items()))
+            if due > now:
+                self._doom_timer = asyncio.get_running_loop().call_later(
+                    due - now, self._free_doomed)
+                return
+            del self._doomed[oid]
+            entry = self.objects.get(oid)
+            if entry is not None and entry.ready and entry.refcount <= 0:
+                self.zero_ref_lru.pop(oid, None)
+                self._free_entry(oid, entry)
 
     def _lru_touch(self, entry: ObjectEntry):
         self.zero_ref_lru.pop(entry.object_id, None)
@@ -2293,26 +2335,31 @@ class GcsServer:
             entry = self.objects.get(oid)
             if entry is None or not entry.ready:
                 continue
-            if entry.on_shm:
-                # Arena delete defers the actual free while readers hold
-                # pins (rtpt_store_delete -> doomed state), so this is
-                # always safe to issue.
-                self.store.delete(oid)
-                self.shm_bytes -= nbytes
-            if entry.spilled is not None:
-                try:
-                    os.unlink(entry.spilled)
-                except OSError:
-                    pass
-            if entry.inline is not None:
-                self._log_append("objd", oid.binary())
-            if entry.waiters:
-                # Defensive: deleting an entry must never strand a wait
-                # group — each waiter gets a lost row, not silence.
-                self._fail_obj_waiters(entry, "object evicted")
-            del self.objects[oid]
+            self._free_entry(oid, entry)
         if self.shm_bytes > target_bytes:
             self._spill_until_under(target_bytes)
+
+    def _free_entry(self, oid: ObjectID, entry: ObjectEntry):
+        """Delete a ready object that no reference holds: its arena
+        block, its spill file and its directory entry."""
+        if entry.on_shm:
+            # Arena delete defers the actual free while readers hold
+            # pins (rtpt_store_delete -> doomed state), so this is
+            # always safe to issue.
+            self.store.delete(oid)
+            self.shm_bytes -= entry.nbytes
+        if entry.spilled is not None:
+            try:
+                os.unlink(entry.spilled)
+            except OSError:
+                pass
+        if entry.inline is not None:
+            self._log_append("objd", oid.binary())
+        if entry.waiters:
+            # Defensive: deleting an entry must never strand a wait
+            # group — each waiter gets a lost row, not silence.
+            self._fail_obj_waiters(entry, "object evicted")
+        del self.objects[oid]
 
     async def _health_check_loop(self):
         """Active node health checks (reference: ``GcsHealthCheckManager``,

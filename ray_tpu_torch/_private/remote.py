@@ -239,7 +239,9 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Lazy DAG node (reference: ``dag/dag_node.py`` bind API)."""
-        raise not_ported("bind (dag)", "dag")
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs) -> Union[ObjectRef, List[ObjectRef]]:
         w = global_worker()
@@ -286,7 +288,10 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Lazy method-call node on a live actor handle."""
-        raise not_ported("bind (dag)", "dag")
+        from ray_tpu_torch.dag import ClassMethodNode, _HandleNode
+
+        return ClassMethodNode(_HandleNode(self._handle), self._name,
+                               args, kwargs)
 
     def options(self, num_returns: Optional[int] = None, **kw):
         m = ActorMethod(self._handle, self._name,
@@ -417,7 +422,9 @@ class ActorClass:
 
     def bind(self, *args, **kwargs):
         """Lazy actor-construction DAG node."""
-        raise not_ported("bind (dag)", "dag")
+        from ray_tpu_torch.dag import ClassNode
+
+        return ClassNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs) -> ActorHandle:
         w = global_worker()

@@ -7,8 +7,6 @@ Each place that would reach one raises :func:`not_ported`, naming the
 from __future__ import annotations
 
 ITEMS = {
-    "dag": "A8 (dag and compiled graphs)",
-    "gang": "A9 (gang fault plane and the MPMD actor driver)",
     "tune": "A10 (tune)",
     "workflow": "A11 (workflow)",
     "runtime_env": "A12 (runtime_env: pip, conda, container)",

@@ -807,8 +807,14 @@ class Worker:
             live = self._live_refs.get(object_id, 0) + delta
             if live > 0:
                 self._live_refs[object_id] = live
-            else:
-                self._live_refs.pop(object_id, None)
+                return
+            self._live_refs.pop(object_id, None)
+        # The last local ref went: a resolved future has nothing left to
+        # serve (a later ref to the id re-subscribes), and keeping it
+        # grew the dict by every result this process ever read.
+        fut = self._object_futures.get(object_id)
+        if fut is not None and fut.done():
+            self._object_futures.pop(object_id, None)
 
     def queue_ref_delta(self, object_id: ObjectID, delta: int):
         if self.closed:
@@ -1786,6 +1792,14 @@ class Worker:
             else:
                 payload = ("shm", r["nbytes"])
             fut = self._object_futures.get(oid)
+            if oid not in self._live_refs:
+                # Every ref to this result went before it came: nothing
+                # will read the future (a ref made later re-subscribes).
+                if fut is not None:
+                    self._object_futures.pop(oid, None)
+                    if not fut.done():
+                        fut.set_result(payload)
+                continue
             if fut is None:
                 fut = SlimFuture()
                 self._object_futures[oid] = fut

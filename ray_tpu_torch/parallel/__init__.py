@@ -7,9 +7,8 @@ Ulysses (``ring_attention``, ``ulysses``), the MoE and its expert
 parallelism over the ``ep`` axis (``moe``), a step's loss and gradients
 over a split batch and sharded parameters (``training``), the GPipe
 schedule over the ``pp`` axis with TP and FSDP inside its stages
-(``pipeline``), the MPMD pipeline's stage math (``mpmd_pipeline``; its
-stage actors wait for the gang fault plane), and the sharded dryrun
-(``dryrun``)."""
+(``pipeline``), the MPMD pipeline of stage actors over a compiled DAG
+(``mpmd_pipeline``), and the sharded dryrun (``dryrun``)."""
 
 from . import collectives, moe, mpmd_pipeline
 from .dryrun import dryrun_multichip, dryrun_rank
@@ -24,7 +23,7 @@ from .ring_attention import make_ring_attention, ring_attention
 from .sharding import (LLAMA_RULES, VIT_RULES, Placement,
                        activation_sharding, clean_spec, gather_params,
                        optimizer_shardings, shard_params, shardings_for_tree,
-                       spec_for)
+                       spec_for, stage_submesh)
 from .training import (allreduce_grads, global_grad_norm,
                        sharded_loss_fn)
 from .ulysses import make_ulysses_attention, ulysses_attention
@@ -41,5 +40,5 @@ __all__ = [
     "ep_moe_ffn", "make_ep_moe_ffn", "expert_shardings",
     "spmd_pipeline", "make_stage_fn", "stack_layers", "unstack_layers",
     "pipeline_shardings", "make_pipelined_loss", "to_pipeline_params",
-    "pipelined_specs", "mpmd_pipeline",
+    "pipelined_specs", "mpmd_pipeline", "stage_submesh",
 ]

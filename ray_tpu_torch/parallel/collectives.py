@@ -24,8 +24,8 @@ the MoE's expert parallelism (``parallel/moe.py``); ``rotate`` carries the
 hop back, for the ring's K/V and the pipeline's activations
 (``parallel/ring_attention.py``, ``parallel/pipeline.py``).
 
-The host tier (``HostCollectiveGroup``, reductions between actors through
-the object store) belongs to the runtime tier and is not ported here.
+The host tier, ``HostCollectiveGroup``, reduces small host arrays between
+actors through the GCS's key-value store, as the reference's does.
 """
 
 from __future__ import annotations
@@ -299,3 +299,69 @@ def allreduce_bwd(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     if mesh.group(axis) is None:
         return x
     return _AllReduceBwd.apply(x, mesh, axis)
+
+
+class HostCollectiveGroup:
+    """CPU-side collectives between actors via the object store.
+
+    The Gloo-tier analog (``gloo_collective_group.py``): rank 0 gathers,
+    reduces with numpy, and publishes; other ranks poll a named KV slot.
+    Only for small control-plane data (metrics, rendezvous info) — tensor
+    traffic belongs in the mesh's process-group collectives above.
+    """
+
+    def __init__(self, group_name: str, world_size: int, rank: int):
+        self.group_name = group_name
+        self.world_size = world_size
+        self.rank = rank
+        self._round = 0
+
+    def _kv(self):
+        from .._private.worker import global_worker
+
+        return global_worker()
+
+    def allreduce(self, arr, op: str = "sum", timeout: float = 60.0):
+        import pickle
+        import time
+
+        import numpy as np
+
+        w = self._kv()
+        ns = f"col:{self.group_name}"
+        key = f"r{self._round}:{self.rank}"
+        w.kv_put(key, pickle.dumps(np.asarray(arr)), ns=ns)
+        deadline = time.time() + timeout
+        parts = {}
+        while len(parts) < self.world_size:
+            for r in range(self.world_size):
+                if r in parts:
+                    continue
+                blob = w.kv_get(f"r{self._round}:{r}", ns=ns)
+                if blob is not None:
+                    parts[r] = pickle.loads(blob)
+            if time.time() > deadline:
+                raise TimeoutError(
+                    f"allreduce timed out: {len(parts)}/{self.world_size}")
+            if len(parts) < self.world_size:
+                time.sleep(0.005)
+        # Everyone finishing round r implies everyone has READ round r-1,
+        # so our own r-1 slot can be garbage-collected (bounds KV growth;
+        # a restarted member reusing the name then blocks loudly instead of
+        # silently averaging stale data).
+        if self._round > 0:
+            w.kv_del(f"r{self._round - 1}:{self.rank}", ns=ns)
+        self._round += 1
+        stacked = np.stack([parts[r] for r in range(self.world_size)])
+        if op == "sum":
+            return stacked.sum(0)
+        if op == "mean":
+            return stacked.mean(0)
+        if op == "max":
+            return stacked.max(0)
+        if op == "min":
+            return stacked.min(0)
+        raise ValueError(f"unsupported op {op!r}")
+
+    def barrier(self, timeout: float = 60.0):
+        self.allreduce([1.0], timeout=timeout)

@@ -8,8 +8,10 @@ runs it. The mesh is factored as the reference's: ``tp`` and ``sp`` take 2
 where they divide, ``fsdp`` the rest. Where 4 divides ``n``, the
 reference's pipeline part (``pp`` = 2 x ``tp`` = 2, ``dp`` the rest, two
 microbatches) and its MoE part (a small Mixtral on ``ep`` = 2 x ``tp`` =
-2) follow, one AdamW step each. The reference's multi-host and MPMD
-sub-dryruns and its 8B certificate wait for the port of those parts, and
+2) follow, one AdamW step each. ``dryrun_multichip`` then runs the
+reference's MPMD part (``dryrun_mpmd_pipeline``): three stage actors of
+the port's runtime, on the same device. The reference's multi-host
+sub-dryrun and its 8B certificate wait for the port of those parts, and
 are reported as not run.
 """
 
@@ -47,7 +49,11 @@ RANK_TIMEOUT = datetime.timedelta(seconds=600)
 #: The pipeline part's microbatches.
 DRYRUN_MICROBATCHES = 2
 #: The reference's parts that the port's dryrun does not run yet.
-NOT_RUN = ("_dryrun_multihost", "_dryrun_mpmd_pipeline", "_report_8b_cert")
+NOT_RUN = ("_dryrun_multihost", "_report_8b_cert")
+#: The MPMD part's model and batch (the reference's ``_dryrun_mpmd_pipeline``).
+MPMD_DIMS = dict(vocab_size=128, d_model=32, n_layers=4, n_heads=4,
+                 n_kv_heads=2, d_ff=64, max_seq_len=32)
+MPMD_TOKENS = (8, 16)
 
 
 def dryrun_spec(n_devices: int) -> MeshSpec:
@@ -206,8 +212,9 @@ def _child(rank, n_devices, tmp, device, backend):
 
 def dryrun_multichip(n_devices: int, device=None, backend=None) -> dict:
     """Spawn ``n_devices`` processes, join them in a process group through
-    a file store and run ``dryrun_rank`` in each; returns its losses. On
-    CUDA rank r takes card ``r % device_count``; the group is NCCL unless
+    a file store and run ``dryrun_rank`` in each; then, for two or more
+    devices, ``dryrun_mpmd_pipeline``. Returns the parts' losses. On CUDA
+    rank r takes card ``r % device_count``; the group is NCCL unless
     ``backend`` names another (``"gloo"`` puts several ranks on one card).
     A failed rank raises here."""
     device = resolve_device(device)
@@ -215,4 +222,95 @@ def dryrun_multichip(n_devices: int, device=None, backend=None) -> dict:
         mp.spawn(_child, args=(n_devices, tmp, str(device), backend),
                  nprocs=n_devices, join=True)
         with open(os.path.join(tmp, "loss.json")) as f:
-            return json.load(f)
+            losses = json.load(f)
+    if n_devices >= 2:
+        losses["mpmd"] = dryrun_mpmd_pipeline(device)["loss"]
+    return losses
+
+
+def mpmd_inputs():
+    """The MPMD part's fp32 untied model and tokens, from seeds 0 and 1."""
+    cfg = LlamaConfig(**MPMD_DIMS, dtype=torch.float32,
+                      tie_embeddings=False)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, MPMD_TOKENS,
+                           generator=torch.Generator().manual_seed(1))
+    return cfg, params, tokens
+
+
+def dryrun_mpmd_pipeline(device=None) -> dict:
+    """The cross-process MPMD pipeline's certification (the reference's
+    ``_dryrun_mpmd_pipeline``): three stage actors of the port's runtime
+    (compiled-DAG hops on the object plane, the 1F1B in-flight bound), 8
+    microbatches, must reproduce the single-program loss within 1e-4 and
+    consume every saved forward; the bubble fraction is printed. Then a
+    run whose stage compute is a calibrated sleep (so the stage processes
+    overlap on any host) must bound the live saved forwards by the depth
+    and measure a bubble well under a serialized schedule's (~0.67).
+    The stages run on ``device``, CUDA unless the caller names another (on
+    one card they share it). Starts a cluster of three CPUs, and the
+    host's cards on CUDA, unless one is running. Returns the loss, the
+    single-program loss and both bubble fractions."""
+    import ray_tpu_torch
+
+    from ..models.llama import loss_fn
+    from .mpmd_pipeline import MPMDPipeline
+
+    device = resolve_device(device)
+    started = not ray_tpu_torch.is_initialized()
+    if started:
+        ray_tpu_torch.init(num_cpus=3, probe_gpu=False, num_gpus=(
+            torch.cuda.device_count() if device.type == "cuda" else 0))
+    try:
+        cfg, params, tokens = mpmd_inputs()
+        with torch.no_grad():
+            ref_loss = float(loss_fn(params, {"tokens": tokens}, cfg,
+                                     remat=True))
+        pipe = MPMDPipeline(cfg, params, n_stages=3, n_microbatches=8,
+                            schedule="1f1b", device=device)
+        try:
+            loss = pipe.grad_check_step(tokens)
+            stats = pipe.last_step_stats
+            vjps = pipe.live_vjp_counts()
+        finally:
+            pipe.teardown()
+        if abs(loss - ref_loss) >= 1e-4:
+            raise AssertionError(f"mpmd dryrun loss {loss} against the "
+                                 f"single program's {ref_loss}")
+        if vjps != [0, 0, 0]:
+            raise AssertionError(f"unconsumed VJPs after step: {vjps}")
+        print(f"dryrun mpmd pipeline: 3-stage 1F1B stage actors OK "
+              f"loss={loss:.6f} (single-program {ref_loss:.6f}, "
+              f"parity {abs(loss - ref_loss):.2e}) "
+              f"microbatches=8 bubble_fraction="
+              f"{stats['bubble_fraction']:.2f} "
+              f"stage_busy_s={[round(b, 3) for b in stats['stage_busy_s']]}",
+              flush=True)
+        sim = MPMDPipeline(cfg, params, n_stages=3, n_microbatches=8,
+                           schedule="1f1b", simulate_compute_s=0.1,
+                           device=device)
+        try:
+            sim.step(tokens)          # warmup
+            sim.peak_vjp_counts()     # reset high-water marks
+            sim.step(tokens)
+            sstats = sim.last_step_stats
+            analytic = sim.analytic_bubble_fraction()
+            peaks = sim.peak_vjp_counts()
+        finally:
+            sim.teardown()
+        if max(peaks) > 3:
+            raise AssertionError(
+                f"1F1B must bound live VJPs by depth: {peaks}")
+        if sstats["bubble_fraction"] >= 0.4:
+            raise AssertionError(f"sleep-bound 1F1B bubble: {sstats}")
+        print(f"dryrun mpmd schedule: sleep-bound 1F1B bubble_fraction="
+              f"{sstats['bubble_fraction']:.3f} vs analytic "
+              f"(p-1)/(m+p-1)={analytic:.3f} (p=3, m=8); "
+              f"peak_live_vjps={peaks} (depth-bounded)", flush=True)
+        return {"loss": loss, "ref_loss": ref_loss,
+                "bubble_fraction": stats["bubble_fraction"],
+                "sim_bubble_fraction": sstats["bubble_fraction"]}
+    finally:
+        if started:
+            ray_tpu_torch.shutdown()

@@ -28,9 +28,9 @@ A stacked layer leaf of the pipelined tree (``parallel/pipeline.py``'s
 ``pipeline_shardings``) stays split over ``pp``: a rank holds its stage's
 layers.
 
-Not ported here: ``stage_submesh`` (a stage's devices for the MPMD actor
-pipeline) waits for the gang fault plane (ROADMAP A9).
-``constrain`` (a sharding hint inside ``jit``) has no eager counterpart:
+``stage_submesh`` is one MPMD pipeline stage's mesh: ``fsdp`` only, over
+the ranks of the stage's own process group (the ``pp`` axis lies between
+the stages' programs). ``constrain`` (a sharding hint inside ``jit``) has no eager counterpart:
 each rank's tensors already are its shards. ``apply_shardings`` is
 ``shard_params``.
 """
@@ -240,6 +240,21 @@ def optimizer_shardings(optimizer: torch.optim.Optimizer,
                 v.shape == p.shape else ()
                 for k, v in optimizer.state[p].items()}
             for i, (p, spec) in enumerate(zip(params, leaf_specs))}
+
+
+def stage_submesh(n_devices: int, device=None,
+                  backend: Optional[str] = None) -> Mesh:
+    """An fsdp-only mesh for ONE pipeline stage of the MPMD pipeline (the
+    ``pp`` axis lives BETWEEN programs — each stage is its own program
+    over its own ranks — so the stage's mesh carries only the
+    intra-stage axis). Inside a process group of ``n_devices`` ranks it
+    spans them all; without one it is a one-device mesh of that shape.
+    The same ``LLAMA_RULES`` serve a stage's subtree unchanged: stage
+    trees keep the ``layers/<i>/wq`` paths the rules match on."""
+    from .mesh import MeshSpec, make_mesh
+
+    return make_mesh(MeshSpec(fsdp=n_devices), device=device,
+                     backend=backend)
 
 
 def activation_sharding(mesh: Mesh) -> Spec:

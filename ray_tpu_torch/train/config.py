@@ -29,8 +29,26 @@ class ScalingConfig:
     gpus_per_worker: float = 0.0
     resources_per_worker: Optional[Dict[str, float]] = None
     placement_strategy: str = "PACK"
+    # Elastic restart floor: when a restart attempt follows a worker
+    # death, the group may re-form SMALLER (down to this floor) instead
+    # of failing — the training loop sees the new world size, builds its
+    # process group and mesh at that size, and restores the checkpoint
+    # onto it. None = fixed-size restarts (the reference's Train
+    # semantics: worker groups are fixed-size per restart).
+    #
+    # The floor also arms elastic scale-UP: while a run is degraded below
+    # ``num_workers``, a capacity monitor watches the cluster; when the
+    # missing capacity returns, workers are signalled at their next
+    # ``report()`` (a checkpoint boundary), the group re-forms LARGER,
+    # and the loop restores onto the bigger group.
+    elastic_min_workers: Optional[int] = None
+    # Arm the capacity monitor / mid-run regrowth when degraded below
+    # num_workers (only meaningful with elastic_min_workers set). False =
+    # shrink-only elasticity: a degraded run stays at its reduced size.
+    elastic_scale_up: bool = True
     # Placement-group formation wait before an attempt is declared
-    # infeasible.
+    # infeasible. With an elastic floor set, an infeasible TARGET size
+    # degrades to what fits instead of failing the run.
     formation_timeout_s: float = 120.0
 
     def worker_resources(self) -> Dict[str, float]:

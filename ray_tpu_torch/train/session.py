@@ -23,6 +23,21 @@ _session: Optional["TrainSession"] = None
 _lock = threading.Lock()
 
 
+class RescaleSignal(BaseException):
+    """Raised OUT of a train loop at a ``report()`` boundary when the
+    trainer wants the group to re-form at a different world size (elastic
+    scale-up: lost capacity returned). BaseException so a user loop's
+    ``except Exception`` cannot swallow the control transfer; the worker
+    harness catches it and reports a clean rescale exit. Because every
+    rank reports each step in a lockstep SPMD loop, all ranks observe the
+    signal at the same step boundary — no rank is left inside a
+    collective."""
+
+    def __init__(self, target_world_size: int):
+        self.target_world_size = target_world_size
+        super().__init__(f"rescale to {target_world_size} workers")
+
+
 class TrainContext:
     """What ``ray_tpu_torch.train.get_context()`` returns inside a train loop."""
 
@@ -96,8 +111,12 @@ class TrainSession:
         if self.result_actor is not None:
             import ray_tpu_torch
 
-            ray_tpu_torch.get(self.result_actor.push.remote(
+            reply = ray_tpu_torch.get(self.result_actor.push.remote(
                 self.world_rank, dict(metrics), ckpt_path))
+            rescale_to = (reply.get("rescale_to")
+                          if isinstance(reply, dict) else None)
+            if rescale_to and rescale_to != self.world_size:
+                raise RescaleSignal(int(rescale_to))
 
 
 def init_session(**kwargs) -> TrainSession:

@@ -550,3 +550,82 @@ def test_data_copy_is_the_reference_code_but_for_names(module):
     got = (REPO / "ray_tpu_torch" / module).read_text()
     want = _renamed((REPO / "ray_tpu" / module).read_text())
     assert _code(got) == _code(want)
+
+
+# ------------------------------------------------- C7: a stream's blocks
+
+BLOCK_BYTES = 16 << 20
+
+
+def _store_settles_to(worker, level, timeout=20.0):
+    """The store's used bytes once they are at or below ``level`` (the
+    driver flushes its released refs every 0.1 s), or the last reading
+    when the timeout passes first."""
+    import gc
+    import time
+
+    deadline = time.monotonic() + timeout
+    while True:
+        gc.collect()
+        used = worker.store.stats()["bytes_in_use"]
+        if used <= level or time.monotonic() > deadline:
+            return used
+        time.sleep(0.1)
+
+
+def test_repeated_map_batches_passes_leave_the_store_as_they_found_it(
+        clusters):
+    """C7: the same ``from_numpy`` -> ``map_batches`` stream of 16 MiB
+    blocks, read four times with the dataset deleted between passes,
+    leaves the store's used bytes at their level before the first pass
+    and the driver's ``_object_futures`` no larger than after the first
+    pass. Before the fix each pass left its argument bundles and its
+    returned blocks in the store (zero-ref, so evictable only under
+    pressure, and two sizes of block fragmented the arena until a 1 GiB
+    store filled in two passes of 256 MiB) and two futures a block in
+    the driver."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    w = global_worker()
+    rows = BLOCK_BYTES // 8
+    blocks = [np.full(rows, i, np.float64) for i in range(4)]
+    start = _store_settles_to(w, 0, timeout=1.0)
+    futures = []
+    for _ in range(4):
+        ds = td.from_numpy(blocks).map_batches(
+            lambda b: {"data": b["data"] * 2})
+        seen = [float(b["data"][0]) for b in ds.iter_batches(batch_size=rows)]
+        assert seen == [0.0, 2.0, 4.0, 6.0]
+        del ds
+        used = _store_settles_to(w, start)
+        assert used <= start, (used, start)
+        futures.append(len(w._object_futures))
+    assert max(futures[1:]) <= futures[0], futures
+
+
+def test_a_release_that_outruns_a_borrow_leaves_the_block(clusters):
+    """C7's free waits for late increfs: a reader's -1 that reaches the
+    directory before the owner's +1 for that reader's copy (an async
+    actor's reply can outrun its increfs) takes the count to 0 for a
+    moment; the block must stay readable, and go once the last reference
+    does."""
+    import time
+
+    from ray_tpu_torch._private.worker import global_worker
+
+    @ray_tpu_torch.remote
+    def total(a):
+        return float(a.sum())
+
+    w = global_worker()
+    start = _store_settles_to(w, 0, timeout=1.0)
+    ref = ray_tpu_torch.put(np.ones(BLOCK_BYTES // 8))
+    oid = ref.id.binary()
+    # the reader's release, then the owner's late +1 for its copy
+    w.send_gcs_threadsafe({"t": "ref", "d": [(oid, -1)]})
+    w.send_gcs_threadsafe({"t": "ref", "d": [(oid, 1)]})
+    time.sleep(0.5)
+    assert ray_tpu_torch.get(total.remote(ref), timeout=30) == \
+        BLOCK_BYTES // 8
+    del ref
+    assert _store_settles_to(w, start) <= start

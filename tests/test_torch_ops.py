@@ -410,7 +410,13 @@ def test_port_sources_import_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/serve/proxy.py",
             "ray_tpu_torch/serve/config_file.py",
             "ray_tpu_torch/util/pubsub.py",
-            "ray_tpu_torch/_private/usage.py"} <= names
+            "ray_tpu_torch/_private/usage.py",
+            "ray_tpu_torch/dag/__init__.py",
+            "ray_tpu_torch/dag/compiled.py",
+            "ray_tpu_torch/util/collective.py",
+            "ray_tpu_torch/util/chaos.py",
+            "ray_tpu_torch/util/invariants.py",
+            "ray_tpu_torch/cluster_utils.py"} <= names
     assert len(_port_sources()) > 10
     assert not bad, bad
 
@@ -454,7 +460,10 @@ def test_port_strings_name_no_ray_tpu_or_jax_module():
             "ray_tpu_torch/_private/gcs.py",
             "ray_tpu_torch/train/trainer.py",
             "ray_tpu_torch/serve/deployment.py",
-            "ray_tpu_torch/serve/controller.py"} <= names
+            "ray_tpu_torch/serve/controller.py",
+            "ray_tpu_torch/dag/compiled.py",
+            "ray_tpu_torch/util/collective.py",
+            "ray_tpu_torch/cluster_utils.py"} <= names
     bad = [hit for path in _port_sources() for hit in _spawned_names(path)]
     assert not bad, bad
 
@@ -478,6 +487,9 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch.util.pubsub, ray_tpu_torch._private.usage\n"
         "import ray_tpu_torch.data, ray_tpu_torch.data.preprocessors\n"
         "import ray_tpu_torch.train.torch, ray_tpu_torch.train.huggingface\n"
+        "import ray_tpu_torch.dag, ray_tpu_torch.dag.compiled\n"
+        "import ray_tpu_torch.util.collective, ray_tpu_torch.util.chaos\n"
+        "import ray_tpu_torch.util.invariants, ray_tpu_torch.cluster_utils\n"
         "# the HTTP proxy imports aiohttp only when it starts, data loads\n"
         "# Arrow and pandas only at its edges, and train.huggingface loads\n"
         "# transformers only for an HF Trainer\n"

@@ -608,7 +608,8 @@ VERBATIM = (
     "util/events.py", "util/pubsub.py", "serve/batching.py",
     "serve/multiplex.py", "serve/ingress.py", "serve/rpc_client.py",
     "serve/config_file.py", "serve/deployment.py", "serve/controller.py",
-    "serve/proxy.py")
+    "serve/proxy.py", "dag/__init__.py", "dag/compiled.py",
+    "util/chaos.py", "util/invariants.py", "train/session.py")
 
 
 def _renamed(text: str) -> str:
