@@ -102,14 +102,14 @@ Phases, each of which raises on failure (the exit code is then not 0):
      against the same model on the CPU. (a) LLAMA3_1B at full width and
      depth on fsdp = 2 x tp = 2, dense loss, and (b) on fsdp = 4 with
      remat and the chunked loss: phase 8's weights (seed 7) cut to each
-     rank's shards, phase 8's tokens and AdamW, 1 + 2 steps; the first
+     rank's shards, phase 8's tokens and AdamW, 1 + 1 steps; the first
      loss within 1e-2 and the first global gradient norm within 1% of
      phase 8's same recipe, the later losses below the first, each rank's
      launches at phase 8's rate, and per rank its ms per step, peak
      memory and the bytes each collective moved in a step. (d) the
      dryrun's launcher, dryrun_multichip(4), on gloo. (e) phase 14's
      Mixtral on ep = 4 (make_ep_moe_ffn, capacity factor E / k, so
-     nothing is dropped), phase 14's weights and tokens, 1 + 2 steps:
+     nothing is dropped), phase 14's weights and tokens, 1 + 1 steps:
      first loss and its CE part within 1e-2 and first gradient norm
      within 1% of phase 14's, launches at its rate, 12 all-to-alls of an
      fp32 [E, C, D] buffer a rank and step; and in (c) a small fp32
@@ -117,7 +117,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
      The pipeline over pp (make_pipelined_loss, GPipe, remat): (f) pp = 2
      x tp = 2 with 4 microbatches and (g) pp = 2 x fsdp = 2 with 2,
      LLAMA3_1B at full width and depth from phase 8's weights and tokens,
-     1 + 2 steps, held to phase 8's dense run as phase 16 holds it, each
+     1 + 1 steps, held to phase 8's dense run as phase 16 holds it, each
      rank's launches at the schedule's count, its hops (2 (M + S) - 3 a
      step) and FSDP gathers (once a step) counted in bytes; a planted
      fault in each (the embedding's gradient left unsummed over pp; the
@@ -126,7 +126,14 @@ Phases, each of which raises on failure (the exit code is then not 0):
      2) against the CPU; and (d) also runs the dryrun's pipeline (pp = 2 x
      tp = 2) and MoE (ep = 2 x tp = 2) parts, and its MPMD part (three
      stage actors of the runtime on the CPU, 8 microbatches, 1F1B,
-     against the single program's loss);
+     against the single program's loss); (h) ViT-B/16 at full width and
+     depth on fsdp = 2 x tp = 2 (sharded_vit_loss_fn under VIT_RULES, the
+     patch embed and head gathered over tp), phase 15's weights, images
+     and labels, AdamW, 1 + 1 steps: the first loss within VIT_RTOL and
+     the first gradient norm within 1% of phase 15's, each rank's K2
+     launches 12 forward and 12 backward a step, the second loss below
+     the first, and per rank its ms per step, peak memory and the bytes
+     of each collective;
  13. Mixtral serving: Mixtral-8x7B's widths at 16 of its 32 layers (all
      32 do not fit the card), random weights, mixtral_generate_greedy on
      prompts of 40, 200 and 1024 tokens, 32 new tokens each (K1 launches
@@ -247,11 +254,41 @@ Phases, each of which raises on failure (the exit code is then not 0):
      MPMD_DETECT_S; from_checkpoint under the same gang
      lands at generation + 1 and its step 2 loss equals (a)'s bit for
      bit. The card must be free after each pipeline; the cluster is shut
-     down at the end, failures included.
+     down at the end, failures included;
+ 21. Tune and workflow: its own ray_tpu_torch.init(num_cpus=8,
+     num_gpus=1); (a) a Tuner over TorchTrainer(ScalingConfig(num_workers=
+     1, use_gpu=True, resources_per_worker={"GPU": 0.5})) trials of
+     LLAMA3_1B at full width and depth (phase 8's weights, seed 7, and
+     tokens, remat and the chunked loss, AdamW at the trial's rate, a
+     report a step) over the rates TUNE_LRS, ASHAScheduler(max_t 4, grace
+     period 2, reduction factor 2), two trials at a time: every trial on
+     ["0"] and cuda:0, its first loss and the 3e-4 trial's losses 1-3
+     within RUNTIME_LOSS_RTOL of phase 8's remat + chunked run, K2 at
+     phase 8's remat rate a step, the first trial through 4 iterations and
+     the last two stopped at iteration 2, the best result the finished
+     trial with the lowest last loss; (b) PopulationBasedTraining over four
+     ViT-B/16 Trainable trials with_resources {"GPU": 0.25} (phase 15's
+     weights, images and labels, 6 iterations, a checkpoint of the
+     parameters and AdamW state through save_pytree every iteration): every
+     trial on ["0"], each original trial's first loss within VIT_RTOL of
+     phase 15's, at least one exploit, the clone's parameters and AdamW
+     state after load_checkpoint equal to the donor checkpoint's by each
+     leaf's float64 sum, K2 12 + 12 a step; (c) workflow.run of a two-step
+     DAG: the evaluation of (b)'s best checkpoint on the card (a task with
+     num_gpus=0.5: ViT-B/16's loss under no_grad, K1 12 launches), then a
+     step that fails while a planted marker exists; the workflow FAILED,
+     resumed without running the evaluation again, its loss equal to the
+     driver's forward of the checkpoint within VIT_RTOL, and get_output
+     after the cluster restarts over the same storage. Each trial's start,
+     first report, ms/step, peak memory, the checkpoints' GB and seconds
+     and each part's seconds are printed; the card must be free after each
+     part; the cluster is shut down and tune's storage removed at the end,
+     failures included.
 Phases 2 and 6 also hold the kernels at ViT's call (128, 197, 12/12, 64,
 non-causal), phase 2 at each of phase 13's prefills (1, L, 32/8, 128)
 and phase 6 at an ep rank's (1, 2048, 32/8, 128). Phases run
-in the order 1-5, 13, 6-8, 16, 9-11, 14, 12, 15, 17, 18, 19, 20.
+in the order 1-5, 13, 6-8, 16, 9-11, 14, 15, 12, 17, 18, 19, 20, 21;
+phases 12, 15 and 17-21 print the seconds they took.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -2527,7 +2564,14 @@ SHARDED_RUNS = {
 # (e): phase 14's Mixtral on ep = 4, capacity factor E / k, so that a rank
 # may send all its tokens to one expert and none is dropped.
 EP_RUN = "ep=4, Mixtral 2 layers, remat"
-SHARDED_STEPS = (1, 2)  # warm-up, timed
+# warm-up, timed: the later loss must fall below the first, which one
+# step shows as well as two
+SHARDED_STEPS = (1, 1)
+# (h): ViT-B/16 at full width and depth on fsdp = 2 x tp = 2, phase 15's
+# weights, images and labels; its first loss held to phase 15's within
+# VIT_RTOL, its first gradient norm within 1%.
+VIT_RUN = "(h) ViT-B/16, fsdp=2 x tp=2"
+VIT_MESH = dict(fsdp=2, tp=2)
 # The small fp32 models: head dim 64, so tp = 2 leaves each rank 2/1 heads
 # for the kernels. name -> (mesh sizes, attention, remat, chunked vocab,
 # MoE, pipeline microbatches or None); the Mixtral's through
@@ -2659,16 +2703,18 @@ class AuxRecorder:
 
 def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
                   chunked, model=None, seed=7, microbatches=None):
-    """Phase 12 (a), (b), (e), (f) and (g) in one rank: phase 8's weights
-    (seed 7), or with ``model=models.mixtral`` phase 14's, built on the
-    card, cut to this rank's shards and the rest freed, then SHARDED_STEPS
-    AdamW steps on the phase's tokens through sharded_loss_fn
-    (flash_attention, K2, at this rank's heads and rows; a Mixtral's MoE
-    through make_ep_moe_ffn, whose aux the first step records), or with
-    ``microbatches`` through make_pipelined_loss on the pipelined tree,
-    whose first step also records its group norms. Every launch count and
-    the mesh's traffic are reset just before the steps and read just
-    after."""
+    """Phase 12 (a), (b), (e), (f), (g) and (h) in one rank: phase 8's
+    weights (seed 7), or with ``model=models.mixtral`` phase 14's, or with
+    ``model=models.vit`` phase 15's, built on the card, cut to this rank's
+    shards and the rest freed, then SHARDED_STEPS AdamW steps on the
+    phase's tokens through sharded_loss_fn (flash_attention, K2, at this
+    rank's heads and rows; a Mixtral's MoE through make_ep_moe_ffn, whose
+    aux the first step records), a ViT's ``tokens`` (its batch of images
+    and labels) through sharded_vit_loss_fn under VIT_RULES' specs, or
+    with ``microbatches`` through make_pipelined_loss on the pipelined
+    tree, whose first step also records its group norms. Every launch
+    count and the mesh's traffic are reset just before the steps and read
+    just after."""
     from ray_tpu_torch.parallel import collectives, training
 
     model = model or models
@@ -2681,6 +2727,8 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
         specs = parallel.pipelined_specs(params, mesh)
         loss_fn = parallel.make_pipelined_loss(mesh, cfg, microbatches,
                                                remat=remat)
+    elif model is models.vit:
+        specs = parallel.shardings_for_tree(params, mesh, parallel.VIT_RULES)
     else:
         specs = _specs(models, parallel, params, mesh)
     shards = parallel.shard_params(params, mesh, specs)
@@ -2702,6 +2750,9 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
         opt.zero_grad(set_to_none=True)
         if microbatches:
             share = loss_fn(shards, tokens, specs)
+        elif model is models.vit:
+            share = parallel.sharded_vit_loss_fn(shards, tokens, cfg, mesh,
+                                                 specs=specs)
         else:
             share = parallel.sharded_loss_fn(
                 shards, tokens, cfg, mesh, remat=remat, chunked_vocab=chunked,
@@ -2777,7 +2828,8 @@ def mixtral_train_cfg(models):
 
 def sharded_rank(rank, tmp, tokens, moe_tokens):
     """Phase 12's body in rank ``rank`` of the 4-process group: (c) the
-    small models' runs, then (a), (b) and (e); results to ``tmp``. A
+    small models' runs, then (a), (b), (f), (g), (e) and (h); results to
+    ``tmp``. A
     failure raises out of the process, and the parent's spawn raises it."""
     import datetime
 
@@ -2811,6 +2863,11 @@ def sharded_rank(rank, tmp, tokens, moe_tokens):
             models, parallel, attention, mixtral_train_cfg(models),
             moe_tokens.to("cuda"), dict(ep=WORLD), True, 0,
             model=models.mixtral, seed=MIXTRAL_TRAIN_SEED)
+        vit_cfg = models.vit.ViTConfig()
+        out["train"][VIT_RUN] = sharded_train(
+            models, parallel, attention, vit_cfg,
+            vit_batch(vit_cfg, VIT_IMAGES, VIT_SEED), VIT_MESH, False, 0,
+            model=models.vit, seed=VIT_SEED)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -2850,7 +2907,7 @@ def small_reference(models, attn, remat, chunked, moe, micro, n_shards):
 
 
 def sharded_training(models, parallel, attention, tokens, phase8,
-                     moe_tokens, phase14):
+                     moe_tokens, phase14, phase15):
     """Phase 12: 4 processes on this card, each with its own CUDA context,
     in one gloo group (their mesh built with backend="gloo", so every
     collective is staged through host memory). (c) the small fp32 models
@@ -2858,9 +2915,10 @@ def sharded_training(models, parallel, attention, tokens, phase8,
     loss and every gathered gradient held to the same model on the CPU;
     (a) and (b) LLAMA3_1B as SHARDED_RUNS, held to phase 8's run of the
     same recipe (``phase8``: name to its result and step count); (e) phase
-    14's Mixtral on ep = 4, held to phase 14's run (``phase14``); (d) the
-    dryrun's launcher. Returns (a), (b) and (e)'s per-rank results, and
-    (c)'s."""
+    14's Mixtral on ep = 4, held to phase 14's run (``phase14``); (h)
+    ViT-B/16 on fsdp = 2 x tp = 2, held to phase 15's run (``phase15``);
+    (d) the dryrun's launcher. Returns (a), (b), (e), (f), (g) and (h)'s
+    per-rank results, and (c)'s."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -2912,7 +2970,9 @@ def sharded_training(models, parallel, attention, tokens, phase8,
     results = {}
     runs = [(name, recipe, micro, phase8[recipe])
             for name, (*_, recipe, micro) in SHARDED_RUNS.items()]
-    runs.append((EP_RUN, "phase 14", None, (phase14, sum(SHARDED_STEPS))))
+    # phases 14 and 15 each ran 1 + 2 steps
+    runs.append((EP_RUN, "phase 14", None, (phase14, 3)))
+    runs.append((VIT_RUN, "phase 15", None, (phase15, 3)))
     steps = sum(SHARDED_STEPS)
     for name, recipe, micro, (ref, ref_steps) in runs:
         got = [r["train"][name] for r in ranks]
@@ -2928,8 +2988,9 @@ def sharded_training(models, parallel, attention, tokens, phase8,
             held = [("first loss", first, ref["losses"][0])]
             if "ce" in ref:
                 held.append(("CE", got[0]["ce"], ref["ce"]))
+            rtol = VIT_RTOL if name == VIT_RUN else 1e-2
             for what, x, want in held:
-                if not abs(x - want) <= 1e-2 * abs(want):
+                if not abs(x - want) <= rtol * abs(want):
                     raise AssertionError(f"{name}: {what} {x}, {recipe}'s "
                                          f"{want}")
             if not abs(norm - ref["grad_norm"]) <= 1e-2 * ref["grad_norm"]:
@@ -4310,6 +4371,513 @@ def mpmd_training(models, tokens, dense, lockstep):
     return out
 
 
+# Phase 21: Tune and workflow on the card, on a cluster of its own.
+# (a) ASHA over TorchTrainer trials of LLAMA3_1B, two at a time, each at
+# half the card (resources_per_worker's GPU share): phase 8's remat +
+# chunked step, phase 8's weights (seed 7) and tokens. Every trial's first
+# loss comes before its first update, so the first rung is at iteration 2;
+# the first two rates are sane and the last two so large that their first
+# update sends the loss up, so these meet a rung that holds the first two.
+TUNE_LRS = (3e-4, 1e-4, 3e-2, 1e-1)
+TUNE_MAX_T = 4
+TUNE_GRACE = 2
+TUNE_CHUNK = 16384
+# (b) PBT over four ViT-B/16 trials at a quarter of the card each, phase
+# 15's weights, images and labels in every trial and a checkpoint every
+# iteration; the last rate sends the loss up at its first update, so that
+# trial is the worst at iteration 2 and clones a donor.
+PBT_LRS = (3e-4, 1e-4, 3e-5, 1e-1)
+PBT_ITERS = 6
+PBT_INTERVAL = 2
+PBT_MUTATIONS = (3e-4, 1e-4)
+PBT_SEED = 21
+# (c) the workflow's evaluation batch
+WORKFLOW_IMAGES = 64
+WORKFLOW_SEED = 22
+
+
+def _where(attention, counters):
+    """Where this process runs and what it launched, for a report."""
+    import torch
+
+    import ray_tpu_torch
+
+    return {"gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device": f"cuda:{torch.cuda.current_device()}",
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            **{c: getattr(attention, c) for c in counters}}
+
+
+def tune_llama_loop(cfg):
+    """Phase 21 (a)'s trial (shipped by value): phase 8's remat + chunked
+    step on LLAMA3_1B from seed 7 on the trial's share of the card, AdamW
+    at the trial's rate, a report after every step with its loss, its
+    time and the launches so far in this process. It imports torch itself:
+    cloudpickle cannot ship the module global's torch.backends.cudnn."""
+    import time
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import models, train
+    from ray_tpu_torch.ops import attention
+
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mcfg = models.LLAMA3_1B
+    params = models.init_params(
+        mcfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    leaves = models.trainable(params)
+    opt = torch.optim.AdamW(leaves, lr=cfg["lr"], betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.1)
+    tokens = ray_tpu_torch.get(cfg["tokens"]).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in cfg["counters"]:
+        setattr(attention, c, 0)
+    losses, step_s, first_report = [], [], None
+    for _ in range(cfg["max_t"]):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = models.loss_fn(params, {"tokens": tokens}, mcfg,
+                              attn_impl=None, remat=True,
+                              chunked_vocab=cfg["chunk"])
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+        first_report = first_report or time.time()
+        train.report({"loss": losses[-1], "losses": list(losses),
+                      "step_s": list(step_s), "enter_t": t_enter,
+                      "first_report_t": first_report,
+                      **_where(attention, cfg["counters"])})
+
+
+def pbt_trainable():
+    """Phase 21 (b)'s Trainable (defined here, so it ships by value):
+    ViT-B/16 from VIT_SEED on phase 15's batch, AdamW at the trial's rate;
+    each step reports the loss before its update. save_checkpoint writes
+    the parameters and AdamW state through save_pytree with each leaf's
+    float64 sum; load_checkpoint reads them back onto the card and keeps
+    the sums it finds beside the saved ones for the next report."""
+    from ray_tpu_torch import tune
+
+    class ViTPBT(tune.Trainable):
+        checkpoint_frequency = 1
+
+        def setup(self, config):
+            import time
+
+            import torch
+
+            from ray_tpu_torch import models
+            from ray_tpu_torch.models import vit
+            from ray_tpu_torch.ops import attention
+
+            self.t_enter = time.time()
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            self.cfg = vit.ViTConfig()
+            self.params = vit.init_params(
+                self.cfg, torch.Generator(device="cuda").manual_seed(
+                    VIT_SEED), device="cuda")
+            self.batch = vit_batch(self.cfg, VIT_IMAGES, VIT_SEED)
+            self.leaves = models.trainable(self.params)
+            self.opt = torch.optim.AdamW(self.leaves, lr=config["lr"],
+                                         betas=(0.9, 0.999), eps=1e-8,
+                                         weight_decay=0.1)
+            self.steps, self.step_s, self.saves = 0, [], []
+            self.losses = []
+            self.loaded = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in COUNTERS:
+                setattr(attention, c, 0)
+
+        def _sums(self):
+            import torch
+
+            state = [v for st in self.opt.state.values() for v in st.values()
+                     if isinstance(v, torch.Tensor)]
+            return [float(t.detach().double().sum())
+                    for t in list(self.leaves) + state]
+
+        def step(self):
+            import time
+
+            import torch
+
+            from ray_tpu_torch.models import vit
+            from ray_tpu_torch.ops import attention
+
+            t0 = time.perf_counter()
+            self.opt.zero_grad(set_to_none=True)
+            loss = vit.loss_fn(self.params, self.batch, self.cfg)
+            loss.backward()
+            self.opt.step()
+            torch.cuda.synchronize()
+            self.step_s.append(time.perf_counter() - t0)
+            self.steps += 1
+            self.losses.append(float(loss.detach()))
+            out = {"loss": self.losses[-1], "lr": self.config["lr"],
+                   "losses": list(self.losses), "steps": self.steps,
+                   "step_s": list(self.step_s),
+                   "saves": list(self.saves), "enter_t": self.t_enter,
+                   "done": self.training_iteration + 1 >= PBT_ITERS,
+                   **_where(attention, COUNTERS)}
+            if self.loaded is not None:
+                out["loaded"], self.loaded = self.loaded, None
+            return out
+
+        def save_checkpoint(self, checkpoint_dir):
+            import time
+
+            from ray_tpu_torch import train
+
+            t0 = time.perf_counter()
+            nbytes = train.save_pytree(
+                {"leaves": [t.detach() for t in self.leaves],
+                 "opt": self.opt.state_dict()}, checkpoint_dir)
+            with open(os.path.join(checkpoint_dir, "sums.json"), "w") as f:
+                json.dump(self._sums(), f)
+            self.saves.append((nbytes, time.perf_counter() - t0))
+            return checkpoint_dir
+
+        def load_checkpoint(self, checkpoint_dir):
+            import time
+
+            from ray_tpu_torch import train
+
+            import torch
+
+            t0 = time.perf_counter()
+            state = train.load_pytree(checkpoint_dir, device="cuda")
+            with torch.no_grad():
+                for t, saved in zip(self.leaves, state["leaves"]):
+                    t.copy_(saved)
+            self.opt.load_state_dict(state["opt"])
+            for group in self.opt.param_groups:
+                group["lr"] = self.config["lr"]
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            with open(os.path.join(checkpoint_dir, "sums.json")) as f:
+                saved = json.load(f)
+            self.loaded = {"sums": self._sums(), "saved": saved,
+                           "from": checkpoint_dir, "load_s": load_s}
+
+    return ViTPBT
+
+
+def vit_checkpoint_loss(ckpt, images, seed):
+    """ViT-B/16's loss under no_grad on ``images`` images from ``seed``,
+    its weights from the checkpoint at ``ckpt``, and the launches it
+    made."""
+    import torch
+
+    from ray_tpu_torch import models, train
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.ops import attention
+
+    cfg = vit.ViTConfig()
+    params = vit.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        VIT_SEED), device="cuda")
+    state = train.load_pytree(ckpt, device="cuda")
+    with torch.no_grad():
+        for t, saved in zip(models.trainable(params), state["leaves"]):
+            t.copy_(saved)
+    batch = vit_batch(cfg, images, seed)
+    for c in COUNTERS:
+        setattr(attention, c, 0)
+    with torch.no_grad():
+        loss = float(vit.loss_fn(params, batch, cfg))
+    torch.cuda.synchronize()
+    return loss, {c: getattr(attention, c) for c in COUNTERS}
+
+
+def workflow_eval_step(ckpt, runs_path):
+    """Phase 21 (c)'s evaluation step (a task at half the card): counts
+    its runs in ``runs_path``, then the loss of the checkpoint at
+    ``ckpt`` on the workflow's batch."""
+    import torch
+
+    import ray_tpu_torch
+
+    with open(runs_path, "a") as f:
+        f.write("run\n")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    loss, counts = vit_checkpoint_loss(ckpt, WORKFLOW_IMAGES, WORKFLOW_SEED)
+    return {"loss": loss, "counts": counts,
+            "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "device": f"cuda:{torch.cuda.current_device()}"}
+
+
+def workflow_summary_step(evaluation, marker):
+    """Phase 21 (c)'s second step: fails while the planted ``marker`` file
+    exists, then sums the evaluation up."""
+    if os.path.exists(marker):
+        raise RuntimeError(f"planted failure: {marker} exists")
+    return {"evaluation": evaluation,
+            "summary": f"ViT-B/16 loss {evaluation['loss']}"}
+
+
+def tune_asha(rt, tune, train, tokens, remat, storage):
+    """Phase 21 (a); returns each trial's last report by its rate."""
+    cfg = {"tokens": rt.put(tokens.cpu()), "max_t": TUNE_MAX_T,
+           "chunk": TUNE_CHUNK, "counters": COUNTERS}
+    trainer = train.TorchTrainer(
+        tune_llama_loop, train_loop_config=cfg,
+        scaling_config=train.ScalingConfig(
+            num_workers=1, use_gpu=True, resources_per_worker={"GPU": 0.5}))
+    t0 = time.time()
+    grid = tune.Tuner(
+        trainer,
+        param_space={"train_loop_config": {"lr": tune.grid_search(
+            list(TUNE_LRS))}},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", max_concurrent_trials=2,
+            scheduler=tune.ASHAScheduler(max_t=TUNE_MAX_T,
+                                         grace_period=TUNE_GRACE,
+                                         reduction_factor=2)),
+        run_config=train.RunConfig(name="asha", storage_path=storage)).fit()
+    sweep_s = time.time() - t0
+    if grid.errors:
+        raise AssertionError(f"phase 21 (a): {grid.errors}")
+    rows = {r.config["train_loop_config"]["lr"]: r.metrics for r in grid}
+    per_step = {c: remat[c] // 3 for c in COUNTERS}  # phase 8: 1 + 2 steps
+    for lr in TUNE_LRS:
+        m = rows[lr]
+        it = m["training_iteration"]
+        counts = {c: m[c] for c in COUNTERS}
+        step_ms = [x * 1e3 for x in m["step_s"]]
+        log(f"phase 21 (a) lr {lr}: {it} iterations, losses {m['losses']}; "
+            f"pinned to {m['gpu_ids']} (CUDA_VISIBLE_DEVICES "
+            f"{m['visible']}) on {m['device']}; trial entered its loop "
+            f"{m['enter_t'] - t0} s after fit(), first report "
+            f"{m['first_report_t'] - m['enter_t']} s later; ms/step "
+            f"{step_ms} (phase 8's remat + chunked alone {remat['step_ms']})"
+            f"; peak memory {m['peak_gib']} GiB; launches {counts}")
+        if m["gpu_ids"] != ["0"] or m["visible"] != "0" or \
+                m["device"] != "cuda:0":
+            raise AssertionError(f"phase 21 (a) lr {lr}: pinned to "
+                                 f"{m['gpu_ids']}, {m['device']}")
+        gap = abs(m["losses"][0] - remat["losses"][0]) / remat["losses"][0]
+        if not gap <= RUNTIME_LOSS_RTOL:
+            raise AssertionError(f"phase 21 (a) lr {lr}: first loss "
+                                 f"{m['losses'][0]}, phase 8's "
+                                 f"{remat['losses'][0]}")
+        if counts != {c: per_step[c] * it for c in COUNTERS}:
+            raise AssertionError(f"phase 21 (a) lr {lr}: launches {counts} "
+                                 f"over {it} steps, phase 8's rate "
+                                 f"{per_step}")
+    sane = rows[TUNE_LRS[0]]
+    want = remat["losses"][:3]
+    diff = [abs(x - w) / abs(w) for x, w in zip(sane["losses"], want)]
+    log(f"phase 21 (a) lr {TUNE_LRS[0]}: losses 1-3 {sane['losses'][:3]}, "
+        f"phase 8's remat + chunked {want}, relative differences {diff}")
+    if len(diff) != 3 or not all(d <= RUNTIME_LOSS_RTOL for d in diff):
+        raise AssertionError("phase 21 (a): the lr 3e-4 trial parts from "
+                             "phase 8's run")
+    # ASHA at the rung of iteration 2, reduction factor 2: a trial goes on
+    # only if it is in the better half of the rung so far. The first trial
+    # is the better of the first two, so it always finishes; the second
+    # finishes only if its report reached the rung first; the last two
+    # meet a rung holding both sane ones and stop there.
+    stops = {lr: rows[lr]["training_iteration"] for lr in TUNE_LRS}
+    if stops[TUNE_LRS[0]] != TUNE_MAX_T or \
+            stops[TUNE_LRS[1]] not in (TUNE_GRACE, TUNE_MAX_T) or \
+            any(stops[lr] != TUNE_GRACE for lr in TUNE_LRS[2:]):
+        raise AssertionError(f"phase 21 (a): iterations by rate {stops}")
+    best = grid.get_best_result().config["train_loop_config"]["lr"]
+    finished = [lr for lr in TUNE_LRS if stops[lr] == TUNE_MAX_T]
+    lowest = min(finished, key=lambda lr: rows[lr]["loss"])
+    if best != lowest:
+        raise AssertionError(f"phase 21 (a): best {best}, the finished "
+                             f"trial with the lowest last loss {lowest}")
+    shared = [sum(rows[lr]["step_s"][1:]) / len(rows[lr]["step_s"][1:]) * 1e3
+              for lr in TUNE_LRS]
+    log(f"phase 21 (a): iterations by rate {stops}; best {best}; ms/step "
+        f"after the first, two trials sharing the card, {shared} (phase "
+        f"8's remat + chunked alone {remat['step_ms']}); the sweep took "
+        f"{sweep_s} s")
+    return rows, sweep_s
+
+
+def tune_pbt(rt, tune, train, vit_run, storage):
+    """Phase 21 (b); returns each trial's last report by its id and the
+    best checkpoint's path."""
+    pbt = tune.PopulationBasedTraining(
+        metric="loss", mode="min", perturbation_interval=PBT_INTERVAL,
+        hyperparam_mutations={"lr": list(PBT_MUTATIONS)}, seed=PBT_SEED)
+    t0 = time.time()
+    grid = tune.Tuner(
+        tune.with_resources(pbt_trainable(), {"GPU": 0.25}),
+        param_space={"lr": tune.grid_search(list(PBT_LRS))},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    scheduler=pbt),
+        run_config=train.RunConfig(name="pbt", storage_path=storage)).fit()
+    sweep_s = time.time() - t0
+    if grid.errors:
+        raise AssertionError(f"phase 21 (b): {grid.errors}")
+    from ray_tpu_torch.models import vit
+
+    n = vit.ViTConfig().n_layers  # K2 n forward and n backward a step
+    rows, exploits = {}, []
+    for r in grid:
+        tid = os.path.basename(r.path)
+        with open(os.path.join(r.path, "result.json")) as f:
+            reports = [json.loads(line) for line in f]
+        m = rows[tid] = dict(r.metrics, reports=reports)
+        counts = {c: m[c] for c in COUNTERS}
+        if m["gpu_ids"] != ["0"] or m["device"] != "cuda:0":
+            raise AssertionError(f"phase 21 (b) {tid}: pinned to "
+                                 f"{m['gpu_ids']}, {m['device']}")
+        if counts != {"launches": n * m["steps"],
+                      "bwd_launches": n * m["steps"], "stats_launches": 0}:
+            raise AssertionError(f"phase 21 (b) {tid}: launches {counts} "
+                                 f"over {m['steps']} steps")
+        if not tid.endswith("r"):
+            first = reports[0]["loss"]
+            gap = abs(first - vit_run["losses"][0]) / vit_run["losses"][0]
+            if not gap <= VIT_RTOL:
+                raise AssertionError(f"phase 21 (b) {tid}: first loss "
+                                     f"{first}, phase 15's "
+                                     f"{vit_run['losses'][0]}")
+        else:
+            loaded = reports[0]["loaded"]
+            with open(os.path.join(loaded["from"], "sums.json")) as f:
+                donor_sums = json.load(f)
+            if not loaded["sums"] == loaded["saved"] == donor_sums:
+                raise AssertionError(f"phase 21 (b) {tid}: restored sums "
+                                     f"differ from the donor checkpoint's")
+            exploits.append((tid, loaded["from"].split(os.sep)[-2],
+                             reports[0]["lr"], loaded["load_s"],
+                             len(loaded["sums"])))
+        saves = m["saves"]
+        log(f"phase 21 (b) {tid}: lr {m['lr']}, {m['training_iteration']} "
+            f"iterations, losses in this process {m['losses']}; pinned to "
+            f"{m['gpu_ids']}; ms/step "
+            f"{[x * 1e3 for x in m['step_s']]} (phase 15 alone "
+            f"{vit_run['step_ms']}); checkpoints "
+            f"{[(b / 1e9, s) for b, s in saves]} (GB, s); peak memory "
+            f"{m['peak_gib']} GiB; launches {counts}")
+    if not exploits:
+        raise AssertionError("phase 21 (b): no exploit")
+    for tid, donor, lr, load_s, leaves in exploits:
+        log(f"phase 21 (b) exploit: {tid} cloned {donor}'s checkpoint at "
+            f"lr {lr}, loaded in {load_s} s; {leaves} parameter and AdamW "
+            f"leaves' float64 sums equal the donor's as saved")
+    best = grid.get_best_result()
+    log(f"phase 21 (b): {len(rows)} trials, {len(exploits)} exploits, best "
+        f"{os.path.basename(best.path)} (loss {best.metrics['loss']}); the "
+        f"sweep took {sweep_s} s")
+    return rows, best.checkpoint.path, sweep_s
+
+
+def durable_workflow(rt, workflow, ckpt, storage):
+    """Phase 21 (c): the two-step workflow on the card, its resume and its
+    output after the cluster restarts; returns the evaluation."""
+    root = os.path.join(storage, "workflows")
+    workflow.init(root)
+    runs = os.path.join(storage, "eval_runs.txt")
+    marker = os.path.join(storage, "fail_once")
+    with open(marker, "w") as f:
+        f.write("planted")
+    evaluate = rt.remote(num_gpus=0.5, max_retries=0)(workflow_eval_step)
+    summary = rt.remote(max_retries=0)(workflow_summary_step)
+    dag = summary.bind(evaluate.bind(ckpt, runs), marker)
+    t0 = time.time()
+    try:
+        workflow.run(dag, workflow_id="phase21")
+    except Exception as e:  # noqa: BLE001 - the planted failure
+        first = repr(e)
+    else:
+        raise AssertionError("phase 21 (c): the planted failure passed")
+    status = workflow.get_status("phase21")
+    if status not in (workflow.FAILED, workflow.RESUMABLE):
+        raise AssertionError(f"phase 21 (c): status {status}")
+    os.remove(marker)
+    out = workflow.resume("phase21")
+    wf_s = time.time() - t0
+    with open(runs) as f:
+        n_runs = len(f.read().split())
+    ev = out["evaluation"]
+    want, driver_counts = vit_checkpoint_loss(ckpt, WORKFLOW_IMAGES,
+                                              WORKFLOW_SEED)
+    gap = abs(ev["loss"] - want) / want
+    log(f"phase 21 (c): first run {status} ({first[:120]}), resumed to "
+        f"{workflow.get_status('phase21')} in {wf_s} s all told; the "
+        f"evaluation ran {n_runs} time(s), on {ev['gpu_ids']} "
+        f"{ev['device']}, loss {ev['loss']} (the driver's {want}, relative "
+        f"gap {gap}); launches in the step {ev['counts']}")
+    from ray_tpu_torch.models import vit
+
+    expect = {"launches": vit.ViTConfig().n_layers, "bwd_launches": 0,
+              "stats_launches": 0}
+    if n_runs != 1 or gap > VIT_RTOL or ev["counts"] != expect or \
+            driver_counts != expect or ev["gpu_ids"] != ["0"] or \
+            workflow.get_status("phase21") != workflow.SUCCESSFUL:
+        raise AssertionError(f"phase 21 (c): runs {n_runs}, loss "
+                             f"{ev['loss']} against {want}, launches "
+                             f"{ev['counts']}, on {ev['gpu_ids']}")
+    t0 = time.perf_counter()
+    rt.shutdown()
+    rt.init(num_cpus=8, num_gpus=1)
+    workflow.init(root)
+    again = workflow.get_output("phase21")
+    if again != out:
+        raise AssertionError(f"phase 21 (c): stored output {again}, the "
+                             f"run's {out}")
+    log(f"phase 21 (c): after the cluster restarted "
+        f"({time.perf_counter() - t0} s) get_output returns the stored "
+        f"result")
+    return ev
+
+
+def tune_and_workflow(tokens, remat, vit_run):
+    """Phase 21 (see the module docstring): its own
+    ray_tpu_torch.init(num_cpus=8, num_gpus=1), (a), (b) and (c); the card
+    must be free after each part; tune's storage is removed and the
+    cluster shut down at the end, failures included. Returns each part's
+    launches by trial or step."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train, tune, workflow
+
+    os.environ.setdefault("RAY_TPU_TORCH_TMPDIR",
+                          tempfile.mkdtemp(prefix="rtt"))
+    storage = tempfile.mkdtemp(prefix="rtt_tune")
+    t_phase = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=8, num_gpus=1)
+    try:
+        log(f"phase 21: cluster up in {time.perf_counter() - t_phase} s")
+        asha, asha_s = tune_asha(ray_tpu_torch, tune, train, tokens, remat,
+                                 storage)
+        _replicas_gone(ray_tpu_torch, what="phase 21 (a)")
+        pbt, best_ckpt, pbt_s = tune_pbt(ray_tpu_torch, tune, train,
+                                         vit_run, storage)
+        _replicas_gone(ray_tpu_torch, what="phase 21 (b)")
+        ev = durable_workflow(ray_tpu_torch, workflow, best_ckpt, storage)
+        _replicas_gone(ray_tpu_torch, what="phase 21 (c)")
+    except BaseException:
+        log(_session_log_tails())
+        raise
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    log(f"phase 21 done in {time.perf_counter() - t_phase} s (ASHA "
+        f"{asha_s} s, PBT {pbt_s} s)")
+    launches = {f"tune_asha_lr_{lr}": m for lr, m in asha.items()}
+    launches.update({f"tune_pbt_{tid}": m for tid, m in pbt.items()})
+    launches["workflow_vit_eval"] = ev["counts"]
+    return {k: {c: v[c] for c in COUNTERS} for k, v in launches.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4494,15 +5062,21 @@ def main() -> int:
     mixtral_train = train_mixtral(models, parallel, attention, moe_tokens)
     log(f"phase 14 done at {time.perf_counter() - t_start} s")
 
+    # Phase 15: ViT-B/16 training and inference; phase 12 (h) holds its
+    # sharded step to it.
+    t0 = time.perf_counter()
+    vit_train, vit_forward_launches, vit_forward_ms = train_vit(models,
+                                                                attention)
+    log(f"phase 15 done in {time.perf_counter() - t0} s, at "
+        f"{time.perf_counter() - t_start} s")
+
+    t0 = time.perf_counter()
     sharded, small = sharded_training(models, parallel, attention,
                                       train_tokens, {"dense": (dense, 6),
                                                      "remat": (remat, 3)},
-                                      moe_tokens, mixtral_train)
-    log(f"phase 12 done at {time.perf_counter() - t_start} s")
-
-    # Phase 15: ViT-B/16 training and inference.
-    vit_train, vit_forward_launches, vit_forward_ms = train_vit(models,
-                                                                attention)
+                                      moe_tokens, mixtral_train, vit_train)
+    log(f"phase 12 done in {time.perf_counter() - t0} s, at "
+        f"{time.perf_counter() - t_start} s")
 
     # Phase 17: the runtime's trainer, in worker actors pinned to the card.
     gc.collect()
@@ -4524,6 +5098,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     mpmd_run = mpmd_training(models, train_tokens, dense, lockstep)["a"]
 
+    # Phase 21: Tune and workflow, their trials and steps sharing the card.
+    gc.collect()
+    torch.cuda.empty_cache()
+    tuned = tune_and_workflow(train_tokens, remat, vit_train)
+
     def sharded_launches(counter):
         """Phase 12's launches of a counter: per rank by run, and in all."""
         by_run = {f"phase 12 {name}, per rank": [g[counter] for g in got]
@@ -4543,6 +5122,7 @@ def main() -> int:
                     + mixtral_train["bwd_launches"]
                     + vit_train["bwd_launches"] + runtime["bwd_launches"]
                     + ingest["bwd_launches"] + mpmd_run["bwd_launches"]
+                    + sum(v["bwd_launches"] for v in tuned.values())
                     + sharded_launches("bwd_launches")[1])
     mosaic = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [{
@@ -4557,6 +5137,7 @@ def main() -> int:
         + mixtral_train["launches"] + vit_train["launches"]
         + vit_forward_launches + runtime["launches"]
         + ingest["launches"] + serving["launches"] + mpmd_run["launches"]
+        + sum(v["launches"] for v in tuned.values())
         + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
@@ -4575,6 +5156,8 @@ def main() -> int:
                              **{f"mpmd_stage_{i}": c["launches"]
                                 for i, c in
                                 enumerate(mpmd_run["launches_by_stage"])},
+                             **{f"phase21_{k}": v["launches"]
+                                for k, v in tuned.items()},
                              **sharded_launches("launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -4622,6 +5205,8 @@ def main() -> int:
                                  **{f"mpmd_stage_{i}": c["bwd_launches"]
                                     for i, c in enumerate(
                                         mpmd_run["launches_by_stage"])},
+                                 **{f"phase21_{k}": v["bwd_launches"]
+                                    for k, v in tuned.items()},
                                  **sharded_launches("bwd_launches")[0]},
             "max_abs_err": max(r[g]["max_abs_err"] for r in bwd_rows
                                for g in (("dk", "dv") if name == "dkdv"

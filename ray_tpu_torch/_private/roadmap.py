@@ -7,8 +7,6 @@ Each place that would reach one raises :func:`not_ported`, naming the
 from __future__ import annotations
 
 ITEMS = {
-    "tune": "A10 (tune)",
-    "workflow": "A11 (workflow)",
     "runtime_env": "A12 (runtime_env: pip, conda, container)",
     "tooling": "A13 (autoscaler, dashboard, job, client, static checks)",
     "rl": "A14 (rl/)",

@@ -8,6 +8,15 @@ many kv heads as query heads (the flash kernels on CUDA, at a length no
 tile divides: 197 tokens for ViT-B/16); the MLP's GELU is the tanh
 approximation, ``jax.nn.gelu``'s default; the pooled CLS row and the
 classifier are fp32.
+
+On a process-group mesh ``encode``, ``forward`` and ``loss_fn`` take a
+``shard`` (a ``parallel.sharding.Placement`` of ``VIT_RULES``' specs, its
+``whole`` leaves ``WHOLE_LEAVES``): each layer's weights are gathered over
+``fsdp`` where it uses them, attention and the MLP run on this rank's
+heads and hidden units between Megatron's f and g, and the patch embed and
+the head, whose column-parallel specs would split the residual stream and
+the classes, are gathered over ``tp`` for their products.
+``parallel.sharded_vit_loss_fn`` runs a step on such shards.
 """
 
 from __future__ import annotations
@@ -21,6 +30,11 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from ..ops.attention import flash_attention
 from ..ops.layers import rms_norm
+
+
+#: The leaves a sharded step uses whole over ``tp``: the patch embed and
+#: the classifier (0.59 M and 0.77 M parameters at ViT-B/16).
+WHOLE_LEAVES = ("patch_embed/w", "head/w")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,50 +124,75 @@ def patchify(images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     return x.reshape(B, (H // P) * (W // P), P * P * C)
 
 
-def _attention(layer, x, cfg: ViTConfig, attn_impl):
+def _attention(layer, x, cfg: ViTConfig, attn_impl, shard=None):
+    """Heads are counted from the weights: under ``shard`` this rank's."""
     B, N, D = x.shape
     h = rms_norm(x, layer["attn_norm"])
-    q = (h @ layer["wq"]).reshape(B, N, cfg.n_heads, cfg.head_dim)
-    k = (h @ layer["wk"]).reshape(B, N, cfg.n_heads, cfg.head_dim)
-    v = (h @ layer["wv"]).reshape(B, N, cfg.n_heads, cfg.head_dim)
-    a = attn_impl(q, k, v, causal=False).reshape(B, N, D)
-    return x + (a @ layer["wo"]).to(x.dtype)
+    if shard is not None:
+        h = shard.enter(h)
+    q = (h @ layer["wq"]).reshape(B, N, -1, cfg.head_dim)
+    k = (h @ layer["wk"]).reshape(B, N, -1, cfg.head_dim)
+    v = (h @ layer["wv"]).reshape(B, N, -1, cfg.head_dim)
+    a = attn_impl(q, k, v, causal=False).reshape(B, N, -1)
+    out = a @ layer["wo"]
+    if shard is not None:
+        out = shard.leave(out)
+    return x + out.to(x.dtype)
 
 
-def _mlp(layer, x):
+def _mlp(layer, x, shard=None):
     h = rms_norm(x, layer["mlp_norm"])
+    if shard is not None:
+        h = shard.enter(h)
     up = F.gelu(h @ layer["w_up"], approximate="tanh")
-    return x + (up @ layer["w_down"]).to(x.dtype)
+    out = up @ layer["w_down"]
+    if shard is not None:
+        out = shard.leave(out)
+    return x + out.to(x.dtype)
+
+
+def _leaf(params, path: str, shard):
+    """Leaf ``path`` of ``params``, gathered as ``shard`` says."""
+    t = params
+    for key in path.split("/"):
+        t = t[key]
+    return t if shard is None else shard.param(path, t)
 
 
 def encode(params: Dict[str, Any], images: torch.Tensor, cfg: ViTConfig,
-           attn_impl=None) -> torch.Tensor:
+           attn_impl=None, shard=None) -> torch.Tensor:
     """[B, H, W, C] images -> the pooled CLS features [B, d_model], fp32.
     ``attn_impl(q, k, v, causal=False)`` is ``flash_attention`` unless
-    given."""
+    given; ``shard`` places ``params``, this rank's shards."""
     attn_impl = attn_impl or flash_attention
     patches = patchify(images.to(cfg.dtype), cfg)
-    x = patches @ params["patch_embed"]["w"] + params["patch_embed"]["b"]
-    cls = params["cls_token"].expand(x.shape[0], 1, cfg.d_model)
-    x = torch.cat([cls, x], dim=1) + params["pos_embed"]
-    for layer in params["layers"]:
-        x = _attention(layer, x, cfg, attn_impl)
-        x = _mlp(layer, x)
-    x = rms_norm(x, params["norm"])
+    x = (patches @ _leaf(params, "patch_embed/w", shard)
+         + _leaf(params, "patch_embed/b", shard))
+    cls = _leaf(params, "cls_token", shard).expand(x.shape[0], 1,
+                                                   cfg.d_model)
+    x = torch.cat([cls, x], dim=1) + _leaf(params, "pos_embed", shard)
+    for i, layer in enumerate(params["layers"]):
+        if shard is not None:
+            layer = shard.layer(i, layer)
+        x = _attention(layer, x, cfg, attn_impl, shard)
+        x = _mlp(layer, x, shard)
+    x = rms_norm(x, _leaf(params, "norm", shard))
     return x[:, 0].float()
 
 
 def forward(params: Dict[str, Any], images: torch.Tensor, cfg: ViTConfig,
-            attn_impl=None) -> torch.Tensor:
+            attn_impl=None, shard=None) -> torch.Tensor:
     """[B, H, W, C] images -> [B, num_classes] logits, fp32."""
-    pooled = encode(params, images, cfg, attn_impl)
-    return pooled @ params["head"]["w"] + params["head"]["b"]
+    pooled = encode(params, images, cfg, attn_impl, shard)
+    return pooled @ _leaf(params, "head/w", shard) + _leaf(params, "head/b",
+                                                          shard)
 
 
-def loss_fn(params, batch, cfg: ViTConfig, attn_impl=None) -> torch.Tensor:
+def loss_fn(params, batch, cfg: ViTConfig, attn_impl=None,
+            shard=None) -> torch.Tensor:
     """Mean softmax cross entropy over ``batch = {"images", "labels"}``."""
     logp = torch.log_softmax(forward(params, batch["images"], cfg,
-                                     attn_impl), dim=-1)
+                                     attn_impl, shard), dim=-1)
     return -logp.gather(-1, batch["labels"].long()[:, None]).mean()
 
 

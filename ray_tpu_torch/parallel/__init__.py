@@ -25,14 +25,15 @@ from .sharding import (LLAMA_RULES, VIT_RULES, Placement,
                        optimizer_shardings, shard_params, shardings_for_tree,
                        spec_for, stage_submesh)
 from .training import (allreduce_grads, global_grad_norm,
-                       sharded_loss_fn)
+                       sharded_loss_fn, sharded_vit_loss_fn)
 from .ulysses import make_ulysses_attention, ulysses_attention
 
 __all__ = [
     "AXES", "Mesh", "MeshSpec", "make_mesh", "mesh_spec_from_string",
     "data_axes", "local_batch_size", "shard_batch", "collectives",
     "ring_attention", "make_ring_attention", "ulysses_attention",
-    "make_ulysses_attention", "sharded_loss_fn", "allreduce_grads",
+    "make_ulysses_attention", "sharded_loss_fn", "sharded_vit_loss_fn",
+    "allreduce_grads",
     "global_grad_norm", "LLAMA_RULES", "VIT_RULES", "spec_for",
     "clean_spec", "shardings_for_tree", "shard_params", "gather_params",
     "optimizer_shardings", "activation_sharding", "Placement",

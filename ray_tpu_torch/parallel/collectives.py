@@ -206,6 +206,23 @@ class _GatherParam(torch.autograd.Function):
             None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    """``allgather`` along ``dim`` in the forward; in the backward this
+    rank's block of the gradient, which every rank of the axis holds whole
+    and alike."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return allgather(x, mesh, axis, gather_axis=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        block = g.chunk(mesh.shape[axis], dim=dim)[mesh.coords[axis]]
+        return block.contiguous(), None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     """``alltoall``'s exchange; its gradient is the exchange back."""
 
@@ -282,6 +299,16 @@ def gather_param(x: torch.Tensor, mesh: Mesh, axis: str,
     if mesh.group(axis) is None:
         return x
     return _GatherParam.apply(x, mesh, axis, dim)
+
+
+def gather_replicated(x: torch.Tensor, mesh: Mesh, axis: str,
+                      dim: int) -> torch.Tensor:
+    """The axis's blocks of ``x`` joined along ``dim``, for a product that
+    every rank of the axis computes alike on the same rows: the gradient,
+    whole on every rank, is cut back to this rank's block, not summed."""
+    if mesh.group(axis) is None:
+        return x
+    return _GatherReplicated.apply(x, mesh, axis, dim)
 
 
 def allreduce_fwd(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:

@@ -286,26 +286,33 @@ class VocabShard:
 
 
 class Placement:
-    """A Llama or Mixtral parameter tree's shards on a process-group mesh,
-    as ``models.llama``, ``models.mixtral`` and ``parallel.pipeline`` use
-    them: ``specs`` is ``shardings_for_tree`` (``LLAMA_RULES``),
-    ``mixtral_shardings`` or ``pipelined_specs`` of the global tree, or
-    None for a tree replicated on every rank.
+    """A Llama, Mixtral or ViT parameter tree's shards on a process-group
+    mesh, as ``models.llama``, ``models.mixtral``, ``models.vit`` and
+    ``parallel.pipeline`` use them: ``specs`` is ``shardings_for_tree``
+    (``LLAMA_RULES``, or ``VIT_RULES`` for a ViT), ``mixtral_shardings``
+    or ``pipelined_specs`` of the global tree, or None for a tree
+    replicated on every rank.
 
     ``param`` gathers a leaf over every axis of its spec but ``tp``,
     ``ep`` and ``pp``, with a reduce-scatter as its gradient. Where the
     specs split the model's products over ``tp`` (``tp`` > 1), each rank
     holds ``n_heads / tp`` query heads, ``n_kv_heads / tp`` kv heads,
     ``d_ff / tp`` hidden units and ``vocab_size / tp`` rows of the vocab
-    (a Mixtral's experts too); ``enter`` and ``leave``
-    are Megatron's f and g around each split block, ``embed`` the
-    vocab-split lookup, and ``vocab`` the loss's slice. Otherwise ``tp``
-    ranks run the whole model each, on the same rows."""
+    (a Mixtral's experts too; a ViT has no vocab and as many kv heads as
+    query heads); ``enter`` and ``leave`` are Megatron's f and g around
+    each split block, ``embed`` the vocab-split lookup, and ``vocab`` the
+    loss's slice. Otherwise ``tp`` ranks run the whole model each, on the
+    same rows. A leaf named in ``whole`` is gathered over ``tp`` as well,
+    for a product every ``tp`` rank computes alike (a ViT's patch embed
+    and head, which would split the residual stream and the classes), and
+    its gradient is cut back to the rank's block."""
 
-    def __init__(self, mesh: Mesh, cfg, specs: Any = None):
+    def __init__(self, mesh: Mesh, cfg, specs: Any = None,
+                 whole: Sequence[str] = ()):
         if not mesh.distributed:
             raise ValueError("a Placement needs a process-group mesh")
         self.mesh = mesh
+        self.whole = frozenset(whole)
         self.specs = dict(tree_paths(specs)) if specs is not None else {}
         for path, spec in self.specs.items():
             if any(TP in _axes(e) and len(_axes(e)) > 1 for e in spec):
@@ -316,22 +323,26 @@ class Placement:
         self.vocab = None
         if self.tp > 1:
             for name in ("n_heads", "n_kv_heads", "d_ff", "vocab_size"):
-                if getattr(cfg, name) % self.tp:
+                n = getattr(cfg, name, None)
+                if n is not None and n % self.tp:
                     raise ValueError(
-                        f"{name}={getattr(cfg, name)} does not split over "
-                        f"tp={self.tp}: the port splits heads, d_ff and the "
-                        f"vocab over tp")
-            size = cfg.vocab_size // self.tp
-            self.vocab = VocabShard(mesh, TP, mesh.coords[TP] * size,
-                                    cfg.vocab_size)
+                        f"{name}={n} does not split over tp={self.tp}: the "
+                        f"port splits heads, d_ff and the vocab over tp")
+            if hasattr(cfg, "vocab_size"):
+                size = cfg.vocab_size // self.tp
+                self.vocab = VocabShard(mesh, TP, mesh.coords[TP] * size,
+                                        cfg.vocab_size)
 
     def param(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """Leaf ``path`` as the model uses it: gathered over its axes but
-        ``KEPT_AXES``, minor axes first."""
+        ``KEPT_AXES`` (a ``whole`` leaf over ``tp`` too), minor axes
+        first."""
         for dim, entry in enumerate(self.specs.get(path, ())):
             for a in reversed(_axes(entry)):
                 if a not in KEPT_AXES:
                     t = collectives.gather_param(t, self.mesh, a, dim)
+                elif a == TP and path in self.whole:
+                    t = collectives.gather_replicated(t, self.mesh, a, dim)
         return t
 
     def layer(self, i: int, layer: Dict[str, Any]) -> Dict[str, Any]:

@@ -108,6 +108,33 @@ def loss_share(params: Dict[str, Any], tokens: torch.Tensor,
     return loss if extra is None else loss + extra
 
 
+def sharded_vit_loss_fn(params: Dict[str, Any], batch: Dict[str, Any],
+                        cfg, mesh: Mesh, attn_impl=None,
+                        specs: Any = None) -> torch.Tensor:
+    """This rank's share of a ViT's mean cross entropy over the global
+    ``batch`` ``{"images": [B, H, W, C], "labels": [B]}``: its rows over
+    the batch axes, ``params`` its shards under ``specs``
+    (``shardings_for_tree(tree, mesh, VIT_RULES)``, or None for the whole
+    tree on every rank), placed as ``models.vit`` says
+    (``vit.WHOLE_LEAVES`` gathered over ``tp``). The shares of the ranks
+    that split the batch sum to the mean; ranks that differ only along
+    ``tp`` hold the same share. ``allreduce_grads`` completes the
+    gradients of its backward."""
+    from ..models import vit
+
+    if mesh.shape["sp"] > 1 or mesh.shape["pp"] > 1:
+        raise NotImplementedError("a ViT step splits rows, heads and d_ff: "
+                                  "no sp or pp")
+    images, labels = batch["images"], batch["labels"]
+    if not mesh.distributed:
+        return vit.loss_fn(params, batch, cfg, attn_impl)
+    local = {"images": shard_batch(mesh, images),
+             "labels": shard_batch(mesh, labels[:, None])[:, 0]}
+    shard = Placement(mesh, cfg, specs, whole=vit.WHOLE_LEAVES)
+    loss = vit.loss_fn(params, local, cfg, attn_impl, shard=shard)
+    return loss * (local["labels"].shape[0] / labels.shape[0])
+
+
 def _llama_forward(params, tokens, cfg, **kw):
     return llama_forward(params, tokens, cfg, **kw), None
 

@@ -20,8 +20,9 @@ class ScalingConfig:
 
     ``num_workers`` and ``use_gpu`` mirror the reference's fields
     (``air/config.py`` ScalingConfig); ``gpus_per_worker`` is each
-    worker's share of a card (1 by default; 0.5 puts two workers on one
-    card, each pinned to it).
+    worker's share of a card (``resources_per_worker``'s ``"GPU"`` where
+    it is not given, else 1; 0.5 puts two workers on one card, each
+    pinned to it).
     """
 
     num_workers: int = 1
@@ -55,7 +56,8 @@ class ScalingConfig:
         res = dict(self.resources_per_worker or {})
         res.setdefault("CPU", 1.0)
         if self.use_gpu:
-            res["GPU"] = float(self.gpus_per_worker or 1.0)
+            res["GPU"] = float(self.gpus_per_worker or res.get("GPU")
+                               or 1.0)
         return res
 
 

@@ -416,7 +416,13 @@ def test_port_sources_import_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/util/collective.py",
             "ray_tpu_torch/util/chaos.py",
             "ray_tpu_torch/util/invariants.py",
-            "ray_tpu_torch/cluster_utils.py"} <= names
+            "ray_tpu_torch/cluster_utils.py",
+            "ray_tpu_torch/tune/__init__.py",
+            "ray_tpu_torch/tune/tuner.py",
+            "ray_tpu_torch/tune/trainable.py",
+            "ray_tpu_torch/tune/external.py",
+            "ray_tpu_torch/tune/integrations.py",
+            "ray_tpu_torch/workflow/__init__.py"} <= names
     assert len(_port_sources()) > 10
     assert not bad, bad
 
@@ -463,7 +469,10 @@ def test_port_strings_name_no_ray_tpu_or_jax_module():
             "ray_tpu_torch/serve/controller.py",
             "ray_tpu_torch/dag/compiled.py",
             "ray_tpu_torch/util/collective.py",
-            "ray_tpu_torch/cluster_utils.py"} <= names
+            "ray_tpu_torch/cluster_utils.py",
+            "ray_tpu_torch/tune/tuner.py",
+            "ray_tpu_torch/tune/trainable.py",
+            "ray_tpu_torch/workflow/__init__.py"} <= names
     bad = [hit for path in _port_sources() for hit in _spawned_names(path)]
     assert not bad, bad
 
@@ -490,10 +499,14 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch.dag, ray_tpu_torch.dag.compiled\n"
         "import ray_tpu_torch.util.collective, ray_tpu_torch.util.chaos\n"
         "import ray_tpu_torch.util.invariants, ray_tpu_torch.cluster_utils\n"
+        "import ray_tpu_torch.tune, ray_tpu_torch.tune.tuner\n"
+        "import ray_tpu_torch.tune.external, ray_tpu_torch.workflow\n"
         "# the HTTP proxy imports aiohttp only when it starts, data loads\n"
-        "# Arrow and pandas only at its edges, and train.huggingface loads\n"
-        "# transformers only for an HF Trainer\n"
-        "for m in ('aiohttp', 'pyarrow', 'pandas', 'transformers'):\n"
+        "# Arrow and pandas only at its edges, train.huggingface loads\n"
+        "# transformers only for an HF Trainer, and tune its searchers'\n"
+        "# and loggers' packages only when they are built\n"
+        "for m in ('aiohttp', 'pyarrow', 'pandas', 'transformers',\n"
+        "          'optuna', 'hyperopt', 'mlflow', 'wandb'):\n"
         "    assert m not in sys.modules, m\n"
         "from ray_tpu_torch.ops import attention\n"
         "assert attention.KERNELS == ('flash_fwd', 'flash_bwd', "

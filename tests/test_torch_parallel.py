@@ -40,6 +40,14 @@ gathered parameter after one AdamW step against JAX's
 ``pipeline_shardings`` applied, the hops and gathers a step, and the
 dryrun's pipeline and MoE parts.
 
+And ViT's sharded step on fsdp=2 x tp=2: a small ViT's shards under
+``VIT_RULES`` through ``sharded_vit_loss_fn`` (its patch embed and head
+gathered over tp), with 10 classes (the head split over tp) and with 5
+(tp dropped from the head's spec), the loss, every gathered gradient and
+every gathered parameter after one AdamW step against JAX's ``loss_fn``
+under a mesh of the same shape with ``VIT_RULES`` applied, and the loss
+and gradients against the port's unsplit step.
+
 JAX is imported inside the tests only: the gloo children import this
 module again, and they must not load JAX.
 """
@@ -119,6 +127,15 @@ PCFG = dict(vocab_size=128, d_model=64, n_layers=4, n_heads=4, n_kv_heads=2,
 PIPE_TOKENS = (4, 32)
 PIPE_TRAFFIC = ("send_recv", "send_recv_bytes", "allgather",
                 "allgather_bytes", "reducescatter", "reducescatter_bytes")
+# ViT's sharded step: a small ViT (image 16, patch 4: 17 tokens; 2/2 heads
+# of 32, so tp=2 leaves one a rank) with 10 classes (the head split over
+# tp) and with 5 (which tp=2 does not divide: clean_spec drops tp from the
+# head's spec), 8 images, on fsdp=2 x tp=2.
+VIT_CFG = dict(image_size=16, patch_size=4, d_model=64, n_layers=2,
+               n_heads=2, d_ff=128)
+VIT_CLASSES = {"vit10": 10, "vit5": 5}
+VIT_MESH = dict(fsdp=2, tp=2)
+VIT_IMAGES = 8
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -627,6 +644,9 @@ def _child(rank, store, out_dir, inputs):
                        tpipe.pipelined_specs)
             _sharded_step(res, f"{name}_pipeline", pmesh, inputs, None,
                           model="pipeline", microbatches=n_micro)
+        vmesh = make_mesh(MeshSpec(**VIT_MESH), device=CPU)
+        for name in VIT_CLASSES:
+            _vit_step(res, name, vmesh, inputs["vit"][name])
         for part, loss in tdryrun.dryrun_rank(WORLD, device=CPU).items():
             res[f"dryrun_{part}_loss"] = np.array(loss)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
@@ -759,6 +779,66 @@ def _sharded_step(res, name, mesh, inputs, attn, model="llama",
         for i, p in enumerate(leaves)))
 
 
+def _vit_cfg(classes, dtype):
+    from ray_tpu_torch.models import vit as tvit
+
+    return tvit.ViTConfig(**VIT_CFG, num_classes=classes, dtype=dtype)
+
+
+def _vit_step(res, name, mesh, arrays):
+    """A small ViT's shards under VIT_RULES through sharded_vit_loss_fn,
+    the gradients completed by allreduce_grads, one AdamW step on the
+    shards; the global loss, gradients and updated parameters gathered."""
+    from ray_tpu_torch.models import vit as tvit
+
+    cfg = _vit_cfg(arrays["classes"], torch.float32)
+    params = params_from_numpy(arrays["params"], device=CPU)
+    batch = {"images": torch.from_numpy(arrays["images"]),
+             "labels": torch.from_numpy(arrays["labels"])}
+    specs = tsharding.shardings_for_tree(params, mesh, tsharding.VIT_RULES)
+    shards = tsharding.shard_params(params, mesh, specs)
+    leaves = trainable(shards)
+    opt = torch.optim.AdamW(leaves, betas=(0.9, 0.999), eps=1e-8, **ADAMW)
+    share = ttrain.sharded_vit_loss_fn(shards, batch, cfg, mesh,
+                                       specs=specs)
+    share.backward()
+    ttrain.allreduce_grads(shards, mesh, specs)
+    res[f"{name}_loss"] = collectives.allreduce(
+        share.detach(), mesh, ttrain.SPLIT_AXES).numpy()
+    res[f"{name}_grad_norm"] = ttrain.global_grad_norm(
+        shards, mesh, specs).numpy()
+    res[f"{name}_head_spec"] = np.array(str(specs["head"]["w"]))
+    grads = tsharding.gather_params(
+        tsharding._map(lambda _, t: t.grad, shards), mesh, specs)
+    opt.step()
+    after = tsharding.gather_params(shards, mesh, specs)
+    for key, leaf in tsharding.tree_paths(grads):
+        res[f"{name}_grad.{key}"] = leaf.numpy()
+    for key, leaf in tsharding.tree_paths(after):
+        res[f"{name}_param.{key}"] = leaf.detach().numpy()
+    assert tvit.WHOLE_LEAVES == ("patch_embed/w", "head/w")
+
+
+def _vit_inputs():
+    """Each ViT case's weights from JAX's init_params and a batch of
+    images and labels from a numpy seed."""
+    import jax
+    from ray_tpu.models import vit as jvit
+
+    out = {}
+    for i, (name, classes) in enumerate(VIT_CLASSES.items()):
+        jcfg = jvit.ViTConfig(**VIT_CFG, num_classes=classes,
+                              dtype=jax.numpy.float32)
+        rng = np.random.default_rng(30 + i)
+        out[name] = {
+            "classes": classes,
+            "params": jax.tree_util.tree_map(
+                np.asarray, jvit.init_params(jcfg, jax.random.PRNGKey(3))),
+            "images": _randn(rng, VIT_IMAGES, 16, 16, 3),
+            "labels": rng.integers(0, classes, VIT_IMAGES).astype(np.int64)}
+    return out
+
+
 def _moe_inputs():
     """The EP MoE's x, output cotangent, router and experts."""
     B, L, D, F, E, _ = MOE_SHAPE
@@ -858,6 +938,7 @@ def gloo_results(tmp_path_factory):
             np.asarray, jmix.init_params(mcfg, jax.random.PRNGKey(2))),
     }
     inputs["pparams"], inputs["pipe_tokens"] = _pipe_inputs()
+    inputs["vit"] = _vit_inputs()
     tmp = tmp_path_factory.mktemp("gloo")
     mp.spawn(_child, args=(str(tmp / "store"), str(tmp), inputs),
              nprocs=WORLD, join=True)
@@ -1163,6 +1244,91 @@ def test_gloo_sharded_step_matches_jax(gloo_results, cpu_mesh8, name,
                     continue
                 np.testing.assert_allclose(got[key], w, **tol,
                                            err_msg=f"rank {r} {what} {key}")
+
+
+def _jax_vit_step(cpu_mesh8, arrays):
+    """JAX's ViT loss, gradients and parameters after one optax.adamw step
+    under a mesh of VIT_MESH's shape with VIT_RULES applied and the batch
+    placed by batch_sharding."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from ray_tpu.models import vit as jvit
+    from ray_tpu.parallel import MeshSpec as JMeshSpec
+    from ray_tpu.parallel import apply_shardings, batch_sharding
+    from ray_tpu.parallel import make_mesh as jmake_mesh
+    from ray_tpu.parallel.sharding import VIT_RULES, shardings_for_tree
+
+    jcfg = jvit.ViTConfig(**VIT_CFG, num_classes=arrays["classes"],
+                          dtype=jnp.float32)
+    mesh = jmake_mesh(JMeshSpec(**VIT_MESH), devices=cpu_mesh8[:WORLD])
+    params = jax.tree_util.tree_map(jnp.asarray, arrays["params"])
+    params = apply_shardings(params,
+                             shardings_for_tree(params, mesh, VIT_RULES))
+    rows = batch_sharding(mesh)
+    batch = {"images": jax.device_put(jnp.asarray(arrays["images"]), rows),
+             "labels": jax.device_put(jnp.asarray(arrays["labels"]),
+                                      jax.sharding.NamedSharding(
+                                          mesh, jax.sharding.PartitionSpec(
+                                              rows.spec[0])))}
+    opt = optax.adamw(ADAMW["lr"], weight_decay=ADAMW["weight_decay"])
+
+    @jax.jit
+    def step(params, batch):
+        loss, grads = jax.value_and_grad(lambda p: jvit.loss_fn(
+            p, batch, jcfg))(params)
+        updates, _ = opt.update(grads, opt.init(params), params)
+        return loss, grads, optax.apply_updates(params, updates)
+
+    loss, grads, after = step(params, batch)
+    return (float(loss), {k: np.asarray(v) for k, v in _flat(grads).items()},
+            {k: np.asarray(v) for k, v in _flat(after).items()})
+
+
+@pytest.mark.parametrize("name", VIT_CLASSES)
+def test_gloo_vit_step_matches_jax_and_the_unsplit_step(gloo_results,
+                                                        cpu_mesh8, name):
+    """ViT's sharded step on fsdp=2 x tp=2: every rank's global loss,
+    every gathered gradient and every gathered parameter after one AdamW
+    step (``_hold_adamw_step``) against JAX's under a mesh of the same
+    shape; the loss, the
+    gradients and their norm against the port's unsplit step; the head's
+    spec keeps tp where the classes split over it and drops it where
+    they do not."""
+    from ray_tpu_torch.models import vit as tvit
+
+    inputs, results = gloo_results
+    arrays = inputs["vit"][name]
+    want_loss, want_grads, want_params = _jax_vit_step(cpu_mesh8, arrays)
+    cfg = _vit_cfg(arrays["classes"], torch.float32)
+    params = params_from_numpy(arrays["params"], device=CPU)
+    leaves = trainable(params)
+    whole = tvit.loss_fn(params, {
+        "images": torch.from_numpy(arrays["images"]),
+        "labels": torch.from_numpy(arrays["labels"])}, cfg)
+    whole.backward()
+    unsplit = {k: v.grad.numpy() for k, v in _flat(params).items()}
+    assert len(unsplit) == len(leaves)
+    unsplit_norm = np.sqrt(sum(np.square(g.astype(np.float64)).sum()
+                               for g in unsplit.values()))
+    head = "('fsdp', 'tp')" if arrays["classes"] % 2 == 0 else "('fsdp',)"
+    start = {k: np.asarray(v) for k, v in _flat(arrays["params"]).items()}
+    for r, res in enumerate(results):
+        assert str(res[f"{name}_head_spec"]) == head
+        for want in (want_loss, float(whole.detach())):
+            np.testing.assert_allclose(res[f"{name}_loss"], want,
+                                       **VALUE_TOL, err_msg=f"rank {r}")
+        np.testing.assert_allclose(res[f"{name}_grad_norm"], unsplit_norm,
+                                   **VALUE_TOL, err_msg=f"rank {r}")
+        grads = _rank_tree(res, f"{name}_grad.")
+        after = _rank_tree(res, f"{name}_param.")
+        assert grads.keys() == want_grads.keys() == unsplit.keys()
+        for key in want_grads:
+            for want in (want_grads[key], unsplit[key]):
+                np.testing.assert_allclose(grads[key], want, **GRAD_TOL,
+                                           err_msg=f"rank {r} grad {key}")
+            _hold_adamw_step(after[key], want_params[key], want_grads[key],
+                             start[key], grads[key], f"rank {r} {key}")
 
 
 def _hold_adamw_step(got, want, grad, start, port_grad, what):

@@ -239,3 +239,33 @@ def test_vit_shardings_for_tree_match_jax(cpu_mesh8, mesh):
         ttree, make_mesh(MeshSpec(**MESHES[mesh]), device="cpu"),
         tsharding.VIT_RULES)))
     assert got == _jax_specs(jtree, jspecs)
+
+
+# tests/test_vit.py's tiny ViT: 5 classes, which tp = 4 and tp = 2 do not
+# divide, so clean_spec drops tp from the head's spec and keeps fsdp.
+TINY_VIT = dict(image_size=16, patch_size=4, channels=3, num_classes=5,
+                d_model=32, n_layers=2, n_heads=4, d_ff=64)
+
+
+@pytest.mark.parametrize("mesh", ["fsdp2_tp4", "dp2_fsdp2_tp2", "tp8"])
+def test_tiny_vit_shardings_match_jax_and_drop_the_heads_tp(cpu_mesh8,
+                                                            mesh):
+    from ray_tpu.models import vit as jvit
+    from ray_tpu_torch.models import vit as tvit
+
+    jtree = jax.eval_shape(lambda: jvit.init_params(
+        jvit.ViTConfig(**TINY_VIT, dtype=jnp.float32),
+        jax.random.PRNGKey(0)))
+    jspecs = jsharding.shardings_for_tree(
+        jtree, _jmesh(cpu_mesh8, MESHES[mesh]), jsharding.VIT_RULES)
+    ttree = tvit.init_params(tvit.ViTConfig(**TINY_VIT, dtype=torch.float32),
+                             torch.Generator().manual_seed(0), device="meta")
+    got = dict(tsharding.tree_paths(tsharding.shardings_for_tree(
+        ttree, make_mesh(MeshSpec(**MESHES[mesh]), device="cpu"),
+        tsharding.VIT_RULES)))
+    assert got == _jax_specs(jtree, jspecs)
+    assert "tp" not in tsharding.spec_axes(got["head/w"])
+    if "fsdp" in MESHES[mesh]:
+        assert got["head/w"][0] == "fsdp"
+        assert got["patch_embed/w"] == ("fsdp", "tp")
+    assert got["norm"] == got["pos_embed"] == got["patch_embed/b"] == ()

@@ -151,3 +151,25 @@ def test_loss_and_gradients_match_jax(model):
     for k, w in want.items():
         np.testing.assert_allclose(tgrads[k].numpy(), np.asarray(w),
                                    **GRAD_TOL, err_msg=k)
+
+
+def test_one_device_sharded_vit_loss_is_jax_loss_fn(model):
+    """On a one-device mesh (no process group) ``sharded_vit_loss_fn`` is
+    the whole loss, JAX's; a mesh with ``sp`` or ``pp`` is refused (a ViT
+    step splits rows, heads and d_ff only)."""
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh
+    from ray_tpu_torch.parallel import training as ttrain
+
+    jparams, tree = model
+    batch = _batch(4, seed=2)
+    want = jvit.loss_fn(jparams, {k: jnp.asarray(v) for k, v in
+                                  batch.items()}, JCFG)
+    tparams = params_from_numpy(tree, device=CPU)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    got = ttrain.sharded_vit_loss_fn(
+        tparams, tbatch, TCFG, make_mesh(MeshSpec(fsdp=2, tp=2), device=CPU))
+    np.testing.assert_allclose(got.item(), float(want), **VALUE_TOL)
+    for sizes in (dict(sp=2), dict(pp=2)):
+        with pytest.raises(NotImplementedError):
+            ttrain.sharded_vit_loss_fn(tparams, tbatch, TCFG, make_mesh(
+                MeshSpec(**sizes), device=CPU))
