@@ -102,14 +102,16 @@ Phases, each of which raises on failure (the exit code is then not 0):
      against the same model on the CPU. (a) LLAMA3_1B at full width and
      depth on fsdp = 2 x tp = 2, dense loss, and (b) on fsdp = 4 with
      remat and the chunked loss: phase 8's weights (seed 7) cut to each
-     rank's shards, phase 8's tokens and AdamW, 1 + 1 steps; the first
+     rank's shards, phase 8's tokens and AdamW, one step, then the
+     updated shards' loss from a forward under no_grad; the first
      loss within 1e-2 and the first global gradient norm within 1% of
-     phase 8's same recipe, the later losses below the first, each rank's
+     phase 8's same recipe, the later loss below the first, each rank's
      launches at phase 8's rate, and per rank its ms per step, peak
      memory and the bytes each collective moved in a step. (d) the
      dryrun's launcher, dryrun_multichip(4), on gloo. (e) phase 14's
      Mixtral on ep = 4 (make_ep_moe_ffn, capacity factor E / k, so
-     nothing is dropped), phase 14's weights and tokens, 1 + 1 steps:
+     nothing is dropped), phase 14's weights and tokens, one step and
+     the forward as in (a):
      first loss and its CE part within 1e-2 and first gradient norm
      within 1% of phase 14's, launches at its rate, 12 all-to-alls of an
      fp32 [E, C, D] buffer a rank and step; and in (c) a small fp32
@@ -117,7 +119,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
      The pipeline over pp (make_pipelined_loss, GPipe, remat): (f) pp = 2
      x tp = 2 with 4 microbatches and (g) pp = 2 x fsdp = 2 with 2,
      LLAMA3_1B at full width and depth from phase 8's weights and tokens,
-     1 + 1 steps, held to phase 8's dense run as phase 16 holds it, each
+     one step and the forward as in (a), held to phase 8's dense run as
+     phase 16 holds it, each
      rank's launches at the schedule's count, its hops (2 (M + S) - 3 a
      step) and FSDP gathers (once a step) counted in bytes; a planted
      fault in each (the embedding's gradient left unsummed over pp; the
@@ -125,15 +128,15 @@ Phases, each of which raises on failure (the exit code is then not 0):
      a 4-layer small fp32 Llama on pp = 4 (M = 4) and pp = 2 x tp = 2 (M =
      2) against the CPU; and (d) also runs the dryrun's pipeline (pp = 2 x
      tp = 2) and MoE (ep = 2 x tp = 2) parts, and its MPMD part (three
-     stage actors of the runtime on the CPU, 8 microbatches, 1F1B,
+     stage actors of the runtime sharing the card, 8 microbatches, 1F1B,
      against the single program's loss); (h) ViT-B/16 at full width and
      depth on fsdp = 2 x tp = 2 (sharded_vit_loss_fn under VIT_RULES, the
      patch embed and head gathered over tp), phase 15's weights, images
-     and labels, AdamW, 1 + 1 steps: the first loss within VIT_RTOL and
-     the first gradient norm within 1% of phase 15's, each rank's K2
-     launches 12 forward and 12 backward a step, the second loss below
-     the first, and per rank its ms per step, peak memory and the bytes
-     of each collective;
+     and labels, AdamW, one step and the forward as in (a): the first
+     loss within VIT_RTOL and the first gradient norm within 1% of phase
+     15's, each rank's K2 launches 12 forward and 12 backward a step, the
+     later loss below the first, and per rank its ms per step, peak
+     memory and the bytes of each collective;
  13. Mixtral serving: Mixtral-8x7B's widths at 16 of its 32 layers (all
      32 do not fit the card), random weights, mixtral_generate_greedy on
      prompts of 40, 200 and 1024 tokens, 32 new tokens each (K1 launches
@@ -169,16 +172,17 @@ Phases, each of which raises on failure (the exit code is then not 0):
  17. the runtime's trainer: ray_tpu_torch.init(num_cpus=4, num_gpus=1),
      then TorchTrainer trains LLAMA3_1B at full width and depth (phase
      8's weights and tokens, the tokens through ray_tpu_torch.put) in
-     worker actors the runtime pins to the card: (a) one worker, 3 steps
-     with a checkpoint of the parameters and AdamW state after step 2,
-     each loss held to phase 8's within RUNTIME_LOSS_RTOL and K2's
-     launches to phase 8's rate, get_gpu_ids() == ["0"]; (b) the same
-     with a planted exit just after step 2's checkpoint and
-     FailureConfig(max_failures=1), step 3 held to (a)'s bit for bit;
-     (c) two workers at num_gpus=0.5 on gloo, half the batch each,
-     gradients summed by allreduce_grads, 1 + 1 steps, the first loss
-     and gradient norm within 1e-2 of (a)'s (phase 12's rules) and
-     within RUNTIME_DP_LOSS_RTOL and RUNTIME_DP_NORM_RTOL, both
+     worker actors the runtime pins to the card: (a) one worker, 3 steps,
+     each loss held to phase 8's within RUNTIME_LOSS_RTOL and each step's
+     K2 launches to phase 8's rate, get_gpu_ids() == ["0"]; (b) in the
+     same run, a checkpoint of the parameters and AdamW state after step
+     2, a planted exit just after it and FailureConfig(max_failures=1):
+     step 3, on the restored worker, held to phase 8's bit for bit; (c)
+     two workers at num_gpus=0.5 on gloo, half the batch each, gradients
+     summed by allreduce_grads, one step, the first loss and gradient
+     norm within 1e-2 of (a)'s (phase 12's rules) and within
+     RUNTIME_DP_LOSS_RTOL and RUNTIME_DP_NORM_RTOL, then the updated
+     weights' loss from a forward under no_grad below the first, both
      pinned to the card. Worker start, fit() to the first report,
      ms/step against phase 8's, the checkpoint's GB and seconds, the
      restart's seconds and the workers' peak memory are printed; the
@@ -283,12 +287,36 @@ Phases, each of which raises on failure (the exit code is then not 0):
      first report, ms/step, peak memory, the checkpoints' GB and seconds
      and each part's seconds are printed; the card must be free after each
      part; the cluster is shut down and tune's storage removed at the end,
-     failures included.
+     failures included;
+ 22. runtime_env, jobs, the dashboard and the CLI: `python -m
+     ray_tpu_torch start --head --num-cpus 4 --num-gpus 1` (its status
+     "0/1 GPU"); a local wheel of JOB_PROBE written with zipfile; the
+     phase's driver connects and starts the dashboard (where aiohttp is
+     installed; else the jobs go through `job submit` and `job logs`);
+     (a) a job posted to POST /api/jobs with runtime_env working_dir (its
+     script, phase 8's tokens, its config) and env_vars, whose
+     entrypoint connects through RAY_TPU_TORCH_ADDRESS and starts one
+     actor with num_gpus=1 and runtime_env {"pip": the wheel, no index,
+     no deps; "py_modules": [the JOB_STEP_PACKAGE dir]}: the actor runs
+     in the venv's interpreter, imports the probe and the shipped step
+     and trains phase 8's dense LLAMA3_1B step from seed 7 on phase 8's
+     tokens, JOB_STEPS (1 warm-up, 2 timed): get_gpu_ids() ["0"] and
+     CUDA_VISIBLE_DEVICES "0", its losses within RUNTIME_LOSS_RTOL of
+     phase 8's, K2 n_layers a step forward and backward, read in the
+     actor; the entrypoint's driver inherits no pin and opens no CUDA
+     context (and is not on the card's process list); (b) a second job
+     whose actor finds the same venv built (its marker unchanged); (c) a
+     third job whose actor holds the card, stopped by `job stop`: the
+     card's share back within JOB_STOP_S. Submit to RUNNING, the venv's
+     build, the actors' start (`import torch` in an env worker, which is
+     not forked from the worker template), start to the first step,
+     ms/step against phase 8's and peak memory are printed; `stop` then
+     leaves no process and no rtpt_ arena of the cluster.
 Phases 2 and 6 also hold the kernels at ViT's call (128, 197, 12/12, 64,
 non-causal), phase 2 at each of phase 13's prefills (1, L, 32/8, 128)
 and phase 6 at an ep rank's (1, 2048, 32/8, 128). Phases run
-in the order 1-5, 13, 6-8, 16, 9-11, 14, 15, 12, 17, 18, 19, 20, 21;
-phases 12, 15 and 17-21 print the seconds they took.
+in the order 1-5, 13, 6-8, 16, 9-11, 14, 15, 12, 17, 18, 19, 20, 21, 22;
+phases 12, 15 and 17-22 print the seconds they took.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -2564,9 +2592,11 @@ SHARDED_RUNS = {
 # (e): phase 14's Mixtral on ep = 4, capacity factor E / k, so that a rank
 # may send all its tokens to one expert and none is dropped.
 EP_RUN = "ep=4, Mixtral 2 layers, remat"
-# warm-up, timed: the later loss must fall below the first, which one
-# step shows as well as two
-SHARDED_STEPS = (1, 1)
+# AdamW steps a run takes (its first, the CUDA and gloo warm-up
+# included, timed too); then the later loss, which must fall below the
+# first, from a forward of the updated shards under no_grad: a host-staged
+# step takes 3-26 s a rank, its forward a fraction of that.
+SHARDED_STEPS = 1
 # (h): ViT-B/16 at full width and depth on fsdp = 2 x tp = 2, phase 15's
 # weights, images and labels; its first loss held to phase 15's within
 # VIT_RTOL, its first gradient norm within 1%.
@@ -2714,7 +2744,8 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
     with ``microbatches`` through make_pipelined_loss on the pipelined
     tree, whose first step also records its group norms. Every launch
     count and the mesh's traffic are reset just before the steps and read
-    just after."""
+    just after; then the loss of the updated shards from a forward under
+    no_grad."""
     from ray_tpu_torch.parallel import collectives, training
 
     model = model or models
@@ -2746,17 +2777,19 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
             models.mixtral.sharded_forward, moe_ffn=aux_rec)
     norms, group_sq = [], []  # the first step's
 
+    def loss_share():
+        if microbatches:
+            return loss_fn(shards, tokens, specs)
+        if model is models.vit:
+            return parallel.sharded_vit_loss_fn(shards, tokens, cfg, mesh,
+                                                specs=specs)
+        return parallel.sharded_loss_fn(
+            shards, tokens, cfg, mesh, remat=remat, chunked_vocab=chunked,
+            specs=specs, **loss_kw)
+
     def step():
         opt.zero_grad(set_to_none=True)
-        if microbatches:
-            share = loss_fn(shards, tokens, specs)
-        elif model is models.vit:
-            share = parallel.sharded_vit_loss_fn(shards, tokens, cfg, mesh,
-                                                 specs=specs)
-        else:
-            share = parallel.sharded_loss_fn(
-                shards, tokens, cfg, mesh, remat=remat, chunked_vocab=chunked,
-                specs=specs, **loss_kw)
+        share = loss_share()
         share.backward()
         parallel.allreduce_grads(shards, mesh, specs)
         if not norms:
@@ -2768,7 +2801,6 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
         return collectives.allreduce(share.detach(), mesh,
                                      training.SPLIT_AXES)
 
-    warm, timed = SHARDED_STEPS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts reset just before, read just after
@@ -2776,27 +2808,25 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
         setattr(attention, c, 0)
     mesh.traffic.clear()
     t0 = time.perf_counter()
-    losses = [step() for _ in range(warm)]
+    losses = [step() for _ in range(SHARDED_STEPS)]
     torch.cuda.synchronize()
-    after_warm = dict(mesh.traffic)
     t1 = time.perf_counter()
-    losses += [step() for _ in range(timed)]
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
     counts = _counts(attention)
+    traffic = {k: v / SHARDED_STEPS for k, v in sorted(mesh.traffic.items())}
     # ---- end of the main path
+    with torch.no_grad():  # the updated shards' loss
+        losses.append(collectives.allreduce(loss_share().detach(), mesh,
+                                            training.SPLIT_AXES))
     state = sum(t.numel() * t.element_size() for t in leaves) + sum(
         v.numel() * v.element_size() for st in opt.state.values()
         for v in st.values())
     out = dict(losses=[float(x) for x in losses], grad_norm=float(norms[0]),
-               step_ms=(t2 - t1) / timed * 1e3, warm_ms=(t1 - t0) / warm * 1e3,
+               step_ms=(t1 - t0) / SHARDED_STEPS * 1e3,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                state_gib=(state + sum(t.grad.numel() * t.grad.element_size()
                                       for t in leaves)) / 2**30,
                shard_params=sum(t.numel() for t in leaves),
-               traffic_per_step={k: (v - after_warm.get(k, 0)) / timed
-                                 for k, v in sorted(mesh.traffic.items())},
-               **counts)
+               traffic_per_step=traffic, **counts)
     if microbatches:
         out["group_sq"] = group_sq[0]
         # what one gather of the stage, the head and the embedding moves:
@@ -2813,7 +2843,7 @@ def sharded_train(models, parallel, attention, cfg, tokens, sizes, remat,
             training.SPLIT_AXES)
         out["aux"] = float(aux)
         out["ce"] = out["losses"][0] - cfg.aux_coef * out["aux"]
-    del shards, leaves, opt, step
+    del shards, leaves, opt, step, loss_share
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2973,7 +3003,7 @@ def sharded_training(models, parallel, attention, tokens, phase8,
     # phases 14 and 15 each ran 1 + 2 steps
     runs.append((EP_RUN, "phase 14", None, (phase14, 3)))
     runs.append((VIT_RUN, "phase 15", None, (phase15, 3)))
-    steps = sum(SHARDED_STEPS)
+    steps = SHARDED_STEPS
     for name, recipe, micro, (ref, ref_steps) in runs:
         got = [r["train"][name] for r in ranks]
         first, norm = got[0]["losses"][0], got[0]["grad_norm"]
@@ -2996,8 +3026,8 @@ def sharded_training(models, parallel, attention, tokens, phase8,
             if not abs(norm - ref["grad_norm"]) <= 1e-2 * ref["grad_norm"]:
                 raise AssertionError(f"{name}: first gradient norm {norm}, "
                                      f"{recipe}'s {ref['grad_norm']}")
-        losses = got[0]["losses"]
-        if not (all(math.isfinite(x) for x in losses)
+        losses = got[0]["losses"]  # the last, the updated shards' loss
+        if not (all(math.isfinite(x) for x in losses) and len(losses) > 1
                 and all(x < losses[0] for x in losses[1:])):
             raise AssertionError(f"{name}: losses {losses} not finite and "
                                  f"below the first")
@@ -3028,8 +3058,8 @@ def sharded_training(models, parallel, attention, tokens, phase8,
                                   models.LLAMA3_1B.d_model, got)
         for r, g in enumerate(got):
             log(f"phase 12 {name} rank {r}: {g['step_ms']} ms/step over "
-                f"{SHARDED_STEPS[1]} timed steps (warm-up {g['warm_ms']} "
-                f"ms), peak memory {g['peak_gib']} GiB, state {g['state_gib']}"
+                f"{steps} step (the first: its warm-up included), peak "
+                f"memory {g['peak_gib']} GiB, state {g['state_gib']}"
                 f" GiB ({g['shard_params']} parameters), per step "
                 f"{json.dumps(g['traffic_per_step'])}")
         results[name] = got
@@ -3110,7 +3140,9 @@ def runtime_loop(cfg):
     worker's own card, or on a gloo mesh over ``dp`` (each rank a half of
     the batch, gradients summed by allreduce_grads); a checkpoint of the
     parameters and AdamW state after step ``checkpoint_after``; with
-    ``die_after``, an exit just after that step on the first attempt."""
+    ``die_after``, an exit just after that step on the first attempt; with
+    ``later_loss``, the updated weights' loss from a forward under no_grad
+    after the last step. Each step's launches are counted from 0."""
     import os
     import time
 
@@ -3138,7 +3170,7 @@ def runtime_loop(cfg):
                                   device="cuda", backend="gloo")
     hist = {"losses": [], "grad_norms": [], "step_s": [], "report_t": [],
             "enter_t": [t_enter], "restore_s": None, "save_s": None,
-            "ckpt_bytes": None}
+            "ckpt_bytes": None, "step_counts": [], "later_loss": None}
     start = 0
     ckpt = train.get_checkpoint()
     if ckpt is not None:
@@ -3159,21 +3191,25 @@ def runtime_loop(cfg):
         hist["ckpt_bytes"] = os.path.getsize(state_file)
         hist["restore_s"] = restore_s
         del state
+
+    def loss_share():
+        if mesh is None:
+            return models.loss_fn(params, {"tokens": tokens}, mcfg,
+                                  attn_impl=None, remat=False)
+        return parallel.sharded_loss_fn(params, tokens, mcfg, mesh)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in cfg["counters"]:
-        setattr(attention, c, 0)
     for step in range(start, cfg["steps"]):
+        for c in cfg["counters"]:
+            setattr(attention, c, 0)
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
+        loss = loss_share()
+        loss.backward()
         if mesh is None:
-            loss = models.loss_fn(params, {"tokens": tokens}, mcfg,
-                                  attn_impl=None, remat=False)
-            loss.backward()
             total = loss.detach()
         else:
-            loss = parallel.sharded_loss_fn(params, tokens, mcfg, mesh)
-            loss.backward()
             parallel.allreduce_grads(leaves, mesh)
             total = parallel.collectives.allreduce(loss.detach(), mesh)
         if step == 0:
@@ -3187,6 +3223,14 @@ def runtime_loop(cfg):
         torch.cuda.synchronize()
         hist["step_s"].append(time.perf_counter() - t0)
         hist["losses"].append(float(total))
+        hist["step_counts"].append({c: getattr(attention, c)
+                                    for c in cfg["counters"]})
+        if cfg.get("later_loss") and step + 1 == cfg["steps"]:
+            with torch.no_grad():
+                later = loss_share().detach()
+                if mesh is not None:
+                    later = parallel.collectives.allreduce(later, mesh)
+            hist["later_loss"] = float(later)
         hist["report_t"].append(time.time())
         checkpoint = None
         if step + 1 == cfg["checkpoint_after"]:
@@ -3204,20 +3248,23 @@ def runtime_loop(cfg):
             "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
             "device": torch.cuda.get_device_name(0),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            **{c: getattr(attention, c) for c in cfg["counters"]}},
+            **{c: sum(n[c] for n in hist["step_counts"])
+               for c in cfg["counters"]}},
             checkpoint=checkpoint)
         if cfg["die_after"] == step + 1 and ckpt is None:
             os._exit(1)  # the planted death, first attempt only
 
 
-def _session_log_tails(lines: int = 40) -> str:
-    """The last lines of the port's session logs, for a failed phase 17
-    or 18."""
+def _session_log_tails(lines: int = 40, root: str = "") -> str:
+    """The last lines of the port's session logs (and jobs' logs) under
+    ``root`` (RAY_TPU_TORCH_TMPDIR unless given), for a failed phase."""
     import glob
 
-    root = os.environ.get("RAY_TPU_TORCH_TMPDIR", "")
+    root = root or os.environ.get("RAY_TPU_TORCH_TMPDIR", "")
     out = []
-    for path in sorted(glob.glob(os.path.join(root, "session_*", "*.out"))):
+    for path in sorted(glob.glob(os.path.join(root, "session_*", "*.out"))
+                       + glob.glob(os.path.join(root, "session_*",
+                                                "job-*.log"))):
         with open(path, errors="replace") as f:
             tail = f.read().splitlines()[-lines:]
         out.append(f"--- {path}\n" + "\n".join(tail))
@@ -3226,13 +3273,13 @@ def _session_log_tails(lines: int = 40) -> str:
 
 def runtime_training(tokens, dense):
     """Phase 17: ray_tpu_torch.init(num_cpus=4, num_gpus=1), then
-    TorchTrainer runs (a) one worker with the card, 3 steps with a
-    checkpoint after step 2, held to phase 8's losses and launches; (b)
-    the same with a planted exit after step 2's checkpoint and
-    FailureConfig(max_failures=1), step 3 held to (a)'s bit for bit; (c)
-    two workers at num_gpus=0.5 on gloo, 1 + 1 steps, held to (a)'s first
-    loss and gradient norm by phase 12's rules. The cluster is shut down
-    at the end, failures included."""
+    TorchTrainer runs (a) one worker with the card, 3 steps, held to phase
+    8's losses and launches, (b) in the same run with a checkpoint after
+    step 2, a planted exit just after it and FailureConfig(max_failures=
+    1), step 3 held to phase 8's bit for bit; (c) two workers at
+    num_gpus=0.5 on gloo, one step, held to (a)'s first loss and gradient
+    norm by phase 12's rules, the updated weights' loss below the first.
+    The cluster is shut down at the end, failures included."""
     import shutil
     import tempfile
 
@@ -3275,61 +3322,62 @@ def runtime_training(tokens, dense):
                 f"s after fit(); fit() took {time.time() - t_fit} s")
             return result, ranks, t_fit
 
-        # (a) one worker with the card
-        result, ranks, _ = fit("one_gpu", 1, 1.0)
+        # (a) and (b): one worker with the card, 3 steps, a checkpoint
+        # after step 2, a planted exit just after it and one restart
+        result, ranks, _ = fit("one_gpu", 1, 1.0, failures=1, die_after=2)
         a = ranks[0]
         want = dense["losses"][:RUNTIME_STEPS]
         diff = [abs(x - w) / abs(w) for x, w in zip(a["losses"], want)]
         log(f"phase 17 (a): losses {a['losses']}, phase 8's {want}, "
             f"relative differences {diff}; gradient norm "
             f"{a['grad_norms'][0]}, phase 8's {dense['grad_norm']}")
-        if not all(d <= RUNTIME_LOSS_RTOL for d in diff):
+        if len(a["losses"]) != RUNTIME_STEPS or \
+                not all(d <= RUNTIME_LOSS_RTOL for d in diff):
             raise AssertionError(f"phase 17 (a): losses {a['losses']}, "
                                  f"phase 8's {want}")
         counts = {c: a[c] for c in COUNTERS}
-        expect = {c: per_step[c] * RUNTIME_STEPS for c in COUNTERS}
-        if counts != expect or not counts["launches"] or \
-                not counts["bwd_launches"]:
-            raise AssertionError(f"phase 17 (a): launches {counts}, phase "
-                                 f"8's rate gives {expect}")
+        if a["step_counts"] != [per_step] * RUNTIME_STEPS or \
+                not counts["launches"] or not counts["bwd_launches"]:
+            raise AssertionError(f"phase 17 (a): launches by step "
+                                 f"{a['step_counts']}, phase 8's rate "
+                                 f"{per_step}")
         if a["gpu_ids"] != ["0"] or a["visible"] != "0":
             raise AssertionError(f"phase 17 (a): worker pinned to "
                                  f"{a['gpu_ids']}, CUDA_VISIBLE_DEVICES "
                                  f"{a['visible']!r}")
         step_ms = [x * 1e3 for x in a["step_s"]]
-        log(f"phase 17 (a): launches {counts}; worker on {a['device']} "
-            f"pinned to {a['gpu_ids']} (CUDA_VISIBLE_DEVICES "
-            f"{a['visible']}); ms/step {step_ms} (steps 2-3 mean "
-            f"{sum(step_ms[1:]) / len(step_ms[1:])}) against phase 8's "
-            f"{dense['step_ms']}; checkpoint {a['ckpt_bytes'] / 1e9} GB "
-            f"written in {a['save_s']} s; peak memory {a['peak_gib']} GiB")
+        log(f"phase 17 (a): launches {counts} ({per_step} a step); worker "
+            f"on {a['device']} pinned to {a['gpu_ids']} "
+            f"(CUDA_VISIBLE_DEVICES {a['visible']}); ms/step {step_ms} "
+            f"(steps 2-3 mean {sum(step_ms[1:]) / len(step_ms[1:])}; step 3 "
+            f"on the restored worker) against phase 8's {dense['step_ms']}; "
+            f"peak memory {a['peak_gib']} GiB (the restored worker's)")
         out["a"] = dict(a, step_ms=step_ms, **counts)
-        shutil.rmtree(os.path.join(storage, "one_gpu"), ignore_errors=True)
 
-        # (b) the restart from step 2's checkpoint
-        result, ranks, t_fit = fit("restart", 1, 1.0, failures=1,
-                                   die_after=2)
-        b = ranks[0]
-        if b["losses"] != a["losses"] or b["restore_s"] is None:
-            raise AssertionError(f"phase 17 (b): losses {b['losses']} "
-                                 f"after the restart, (a)'s {a['losses']}")
+        # (b) the restart from step 2's checkpoint, in the same run: the
+        # same kernels with no atomics give phase 8's bits
+        if a["losses"][2] != want[2] or a["restore_s"] is None:
+            raise AssertionError(f"phase 17 (b): step 3's loss "
+                                 f"{a['losses'][2]} after the restart, "
+                                 f"phase 8's {want[2]}")
         # from the end of step 2's checkpoint (the planted exit follows
         # its report) to step 3's report on the restored worker
-        saved_t = b["saved_t"]
-        restart_s = b["report_t"][2] - saved_t
-        log(f"phase 17 (b): step 3's loss {b['losses'][2]} equals (a)'s "
-            f"{a['losses'][2]} bit for bit; the restart took {restart_s} s "
+        saved_t = a["saved_t"]
+        restart_s = a["report_t"][2] - saved_t
+        log(f"phase 17 (b): step 3's loss {a['losses'][2]} equals phase "
+            f"8's {want[2]} bit for bit; the restart took {restart_s} s "
             f"from step 2's checkpoint to step 3's report (the new worker "
-            f"entered its loop {b['enter_t'][1] - saved_t} s after the "
-            f"checkpoint, restored {b['ckpt_bytes'] / 1e9} GB in "
-            f"{b['restore_s']} s); checkpoint written in "
-            f"{saved_t - b['report_t'][1]} s")
-        out["b"] = dict(b, restart_s=restart_s)
-        shutil.rmtree(os.path.join(storage, "restart"), ignore_errors=True)
+            f"entered its loop {a['enter_t'][1] - saved_t} s after the "
+            f"checkpoint, restored {a['ckpt_bytes'] / 1e9} GB in "
+            f"{a['restore_s']} s); checkpoint written in "
+            f"{saved_t - a['report_t'][1]} s")
+        out["b"] = dict(a, restart_s=restart_s)
+        shutil.rmtree(os.path.join(storage, "one_gpu"), ignore_errors=True)
 
-        # (c) two workers sharing the card, gloo
+        # (c) two workers sharing the card, gloo, one step and the
+        # updated weights' loss
         result, ranks, _ = fit("two_half_gpus", 2, 0.5, backend="gloo",
-                               steps=2, checkpoint_after=0)
+                               steps=1, checkpoint_after=0, later_loss=True)
         c0, c1 = ranks[0], ranks[1]
         if sorted(r["rank"] for r in ranks.values()) != [0, 1] or \
                 c0["gpu_ids"] != ["0"] or c1["gpu_ids"] != ["0"] or \
@@ -3338,12 +3386,14 @@ def runtime_training(tokens, dense):
         first, norm = c0["losses"][0], c0["grad_norms"][0]
         loss_gap = abs(first - a["losses"][0]) / a["losses"][0]
         norm_gap = abs(norm - a["grad_norms"][0]) / a["grad_norms"][0]
-        if c1["losses"] != c0["losses"] or \
+        later = c0["later_loss"]
+        if c1["losses"] != c0["losses"] or c1["later_loss"] != later or \
                 not loss_gap <= min(1e-2, RUNTIME_DP_LOSS_RTOL) or \
                 not norm_gap <= min(1e-2, RUNTIME_DP_NORM_RTOL) or \
-                not c0["losses"][1] < first:
+                not (math.isfinite(later) and later < first):
             raise AssertionError(
                 f"phase 17 (c): losses {c0['losses']} / {c1['losses']}, "
+                f"updated {later} / {c1['later_loss']}, "
                 f"norm {norm}; (a)'s {a['losses'][0]}, "
                 f"{a['grad_norms'][0]}; relative gaps {loss_gap} (limit "
                 f"{RUNTIME_DP_LOSS_RTOL}) and {norm_gap} (limit "
@@ -3351,7 +3401,8 @@ def runtime_training(tokens, dense):
         log(f"phase 17 (c): ranks 0 and 1 both pinned to {c0['gpu_ids']}; "
             f"losses {c0['losses']} (first {first} against (a)'s "
             f"{a['losses'][0]}, relative gap {loss_gap}, limit "
-            f"{RUNTIME_DP_LOSS_RTOL}), gradient norm {norm} against "
+            f"{RUNTIME_DP_LOSS_RTOL}; the updated weights' {later}, below "
+            f"it), gradient norm {norm} against "
             f"{a['grad_norms'][0]} (relative gap {norm_gap}, limit "
             f"{RUNTIME_DP_NORM_RTOL}); ms/step "
             f"{[x * 1e3 for x in c0['step_s']]}; peak memory "
@@ -4878,6 +4929,457 @@ def tune_and_workflow(tokens, remat, vit_run):
     return {k: {c: v[c] for c in COUNTERS} for k, v in launches.items()}
 
 
+# Phase 22: runtime_env, jobs, the dashboard and the CLI. A cluster of its
+# own started by `python -m ray_tpu_torch start`; jobs submitted over the
+# dashboard (or the CLI without aiohttp) train phase 8's dense step in an
+# actor that sits in a pip venv, holds the card and imports its step from
+# a py_modules package.
+JOB_STEPS = (1, 2)       # warm-up, timed steps in the job's actor
+JOB_STOP_S = 30.0        # a stopped job's GPU share back within
+JOB_TIMEOUT_S = 600.0    # a job's longest run (the first builds the venv)
+JOB_PROBE = "rtpt_job_probe"   # the local wheel the pip env installs
+JOB_STEP_PACKAGE = "p22_step"  # the py_modules package
+
+# The job's training step (JOB_STEP_PACKAGE/__init__.py), shipped to the
+# actor by py_modules: phase 8's dense step on its own card.
+JOB_STEP_SOURCE = '''"""Phase 22's step: phase 8's dense LLAMA3_1B step from a seed."""
+import time
+
+import torch
+
+from ray_tpu_torch import models
+from ray_tpu_torch.ops import attention
+
+COUNTERS = ("launches", "bwd_launches", "stats_launches")
+
+
+def train(tokens, cfg):
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mcfg = models.LLAMA3_1B
+    gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
+    params = models.init_params(mcfg, gen, device="cuda")
+    leaves = models.trainable(params)
+    opt = torch.optim.AdamW(leaves, lr=cfg["lr"], betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.1)
+    tokens = torch.from_numpy(tokens).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in COUNTERS:
+        setattr(attention, c, 0)
+    losses, step_s, first_t = [], [], None
+    for _ in range(cfg["warm"] + cfg["timed"]):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = models.loss_fn(params, {"tokens": tokens}, mcfg,
+                              attn_impl=None, remat=False)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+        first_t = first_t or time.time()
+    return {"losses": losses, "step_s": step_s, "enter_t": t_enter,
+            "first_step_t": first_t,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "device": torch.cuda.get_device_name(0),
+            **{c: getattr(attention, c) for c in COUNTERS}}
+'''
+
+# The job's entrypoint (written into its working_dir): `python job22.py
+# train|probe|hold`. It connects through RAY_TPU_TORCH_ADDRESS, which the
+# job manager sets, and starts one actor with the card in the pip env.
+JOB_SCRIPT = '''"""Phase 22's job: `python job22.py train|probe|hold`."""
+import json
+import os
+import subprocess
+import sys
+import time
+
+t_start = time.time()
+
+import numpy as np
+
+import ray_tpu_torch as rt
+
+cfg = json.load(open(os.environ["P22_CONFIG"]))
+mode = sys.argv[1]
+rt.init()
+
+
+@rt.remote(num_gpus=1, runtime_env={
+    "pip": {"packages": [cfg["wheel"]], "no_index": True, "no_deps": True},
+    "py_modules": [cfg["step_dir"]]})
+class Trainer:
+    def __init__(self):
+        self.init_t = time.time()
+
+    def _torch(self):
+        """`import torch`, timed: an env worker is not forked from the
+        worker template, so it pays this itself."""
+        before = "torch" in sys.modules
+        t0 = time.perf_counter()
+        import torch
+        return torch, {"torch_before": before,
+                       "import_s": time.perf_counter() - t0}
+
+    def probe(self):
+        import os
+
+        probe = __import__(cfg["probe"])
+        venv = os.path.dirname(os.path.dirname(sys.executable))
+        return {"executable": sys.executable, "probe": probe.MAGIC,
+                "gpu_ids": rt.get_gpu_ids(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "pid": os.getpid(), "init_t": self.init_t,
+                "venv_started": os.path.getmtime(
+                    os.path.join(venv, "pyvenv.cfg")),
+                "venv_built": os.path.getmtime(
+                    os.path.join(venv, ".ray_tpu_ok"))}
+
+    def run(self, tokens, step_cfg):
+        _, imported = self._torch()
+        step = __import__(cfg["step_package"])
+        return {**imported, **step.train(tokens, step_cfg)}
+
+    def hold(self):
+        torch, imported = self._torch()
+        self.x = torch.zeros(1 << 20, device="cuda")
+        torch.cuda.synchronize()
+        return {**imported, **self.probe()}
+
+
+def card_pids():
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout
+    except OSError:
+        return None
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+t_create = time.time()
+a = Trainer.remote()
+out = rt.get(a.hold.remote() if mode == "hold" else a.probe.remote(),
+             timeout=900)
+out["create_t"] = t_create
+if mode == "hold":
+    print("P22_HOLDING " + json.dumps(out), flush=True)
+    time.sleep(3600)
+if mode == "train":
+    out.update(rt.get(a.run.remote(np.load("tokens.npy"), cfg["step"]),
+                      timeout=900))
+torch = sys.modules.get("torch")
+out["driver"] = {
+    "pid": os.getpid(), "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+    "torch_loaded": torch is not None,
+    "cuda_initialized": bool(torch and torch.cuda.is_initialized()),
+    "card_pids": card_pids(), "start_t": t_start}
+print("P22_RESULT " + json.dumps(out), flush=True)
+'''
+
+
+class JobRoutes:
+    """A phase 22 job's submit, status, logs and stop: over the dashboard's
+    HTTP API where aiohttp is installed, else through the CLI."""
+
+    def __init__(self, cli, url):
+        self.cli, self.url = cli, url
+
+    def _http(self, path, body=None):
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.url + path, method="GET" if body is None else "POST",
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+
+    def submit(self, entrypoint, runtime_env, metadata):
+        if self.url:
+            return self._http("/api/jobs", {
+                "entrypoint": entrypoint, "runtime_env": runtime_env,
+                "metadata": metadata})["job_id"]
+        out = self.cli("job", "submit", "--no-wait", "--runtime-env",
+                       json.dumps(runtime_env), "--", *entrypoint.split())
+        return re.search(r"submitted job (\S+)", out).group(1)
+
+    def status(self, jid):
+        if self.url:
+            return self._http(f"/api/jobs/{jid}")["status"]
+        return self.cli("job", "status", jid).strip()
+
+    def logs(self, jid):
+        if self.url:
+            return self._http(f"/api/jobs/{jid}/logs")["logs"]
+        return self.cli("job", "logs", jid)
+
+    def wait(self, jid, until, timeout):
+        """Poll until the status is in ``until``: (status, seconds)."""
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            status = self.status(jid)
+            if status in until:
+                return status, time.perf_counter() - t0
+            time.sleep(0.1)
+        raise AssertionError(f"phase 22: job {jid} still {status} after "
+                             f"{timeout} s:\n{self.logs(jid)[-4000:]}")
+
+
+def _job_line(logs, tag):
+    for line in logs.splitlines():
+        if line.startswith(tag + " "):
+            return json.loads(line[len(tag) + 1:])
+    raise AssertionError(f"phase 22: no {tag} line in the job's log:\n"
+                         f"{logs[-4000:]}")
+
+
+def runtime_env_jobs(tokens, dense):
+    """Phase 22 (see the module docstring). Returns the training job's
+    launches."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.node import session_leftovers
+    from ray_tpu_torch.runtime_env.wheel import write_wheel
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="rtj")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RAY_TPU_TORCH_TMPDIR=root,
+               RAY_TPU_TORCH_VENV_ROOT=os.path.join(root, "venvs"),
+               RAY_TPU_TORCH_PKG_CACHE=os.path.join(root, "pkgs"),
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    env.pop("RAY_TPU_TORCH_ADDRESS", None)
+
+    def cli(*args, timeout=120):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                              env=env, cwd=repo, capture_output=True,
+                              text=True, timeout=timeout)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 22: `{' '.join(args)}` exited "
+                                 f"{proc.returncode}:\n{proc.stdout}\n"
+                                 f"{proc.stderr}")
+        log(f"phase 22: `python -m ray_tpu_torch {' '.join(args)[:60]}` in "
+            f"{time.perf_counter() - t0} s")
+        return proc.stdout
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    connected = started = False
+    try:
+        # 1. the cluster, from the CLI
+        out = cli("start", "--head", "--num-cpus", "4", "--num-gpus", "1",
+                  "--port", str(port))
+        started = True
+        address = re.search(r"address: (\S+)", out).group(1)
+        status = cli("status")
+        if "  0/1 GPU" not in status:
+            raise AssertionError(f"phase 22: status shows no free GPU:\n"
+                                 f"{status}")
+        log(f"phase 22: cluster at {address}; status:\n{status}")
+        # 2. the probe wheel, the step package and the job's working_dir
+        wheel = write_wheel(root, JOB_PROBE, {
+            f"{JOB_PROBE}/__init__.py": b"MAGIC = 'probe-22'\n"})
+        step_dir = os.path.join(root, JOB_STEP_PACKAGE)
+        work = os.path.join(root, "job")
+        os.makedirs(step_dir)
+        os.makedirs(work)
+        with open(os.path.join(step_dir, "__init__.py"), "w") as f:
+            f.write(JOB_STEP_SOURCE)
+        with open(os.path.join(work, "job22.py"), "w") as f:
+            f.write(JOB_SCRIPT)
+        np.save(os.path.join(work, "tokens.npy"), tokens.cpu().numpy())
+        with open(os.path.join(work, "config.json"), "w") as f:
+            json.dump({"wheel": wheel, "step_dir": step_dir,
+                       "probe": JOB_PROBE, "step_package": JOB_STEP_PACKAGE,
+                       "step": {"seed": 7, "lr": LR, "warm": JOB_STEPS[0],
+                                "timed": JOB_STEPS[1]}}, f)
+        renv = {"working_dir": work, "env_vars": {
+            "P22_CONFIG": "config.json", "PYTHONUNBUFFERED": "1"}}
+        # 3. the dashboard (the phase's driver starts it), or the CLI
+        ray_tpu_torch.init(address=address)
+        connected = True
+        try:
+            import aiohttp  # noqa: F401 - only whether it is installed
+            from ray_tpu_torch.dashboard import start_dashboard
+
+            url = start_dashboard(port=0)
+            log(f"phase 22: dashboard at {url}")
+        except ImportError:
+            url = None
+            log("phase 22: aiohttp is not installed: no dashboard; the jobs "
+                "go through the CLI")
+        jobs = JobRoutes(cli, url)
+
+        def submit(mode, until):
+            t0 = time.perf_counter()
+            jid = jobs.submit(f"{sys.executable} job22.py {mode}", renv,
+                              {"phase": "22", "mode": mode})
+            status, s = jobs.wait(jid, until, JOB_TIMEOUT_S)
+            log(f"phase 22: job {jid} ({mode}) {status} "
+                f"{time.perf_counter() - t0} s after its submit")
+            return jid, status, time.perf_counter() - t0
+
+        # 4-6. the training job: its actor in the venv, pinned, through K2
+        jid, _, to_running = submit("train", ("RUNNING", "SUCCEEDED",
+                                              "FAILED"))
+        status, _ = jobs.wait(jid, ("SUCCEEDED", "FAILED", "STOPPED"),
+                              JOB_TIMEOUT_S)
+        logs = jobs.logs(jid)
+        if status != "SUCCEEDED":
+            raise AssertionError(f"phase 22: job {jid} {status}:\n"
+                                 f"{logs[-4000:]}")
+        r = _job_line(logs, "P22_RESULT")
+        venv_root = env["RAY_TPU_TORCH_VENV_ROOT"]
+        want = dense["losses"][:sum(JOB_STEPS)]
+        diff = [abs(x - w) / abs(w) for x, w in zip(r["losses"], want)]
+        n = dense["launches"] // 6  # phase 8's launches a step
+        counts = {c: r[c] for c in COUNTERS}
+        expect = {"launches": n * sum(JOB_STEPS),
+                  "bwd_launches": n * sum(JOB_STEPS), "stats_launches": 0}
+        drv = r["driver"]
+        problems = [
+            *([f"actor's interpreter {r['executable']} is not in the venv "
+               f"root {venv_root}"]
+              if not r["executable"].startswith(venv_root) else []),
+            *([f"probe {r['probe']!r}"] if r["probe"] != "probe-22" else []),
+            *([f"actor pinned to {r['gpu_ids']}, CUDA_VISIBLE_DEVICES "
+               f"{r['visible']!r}"]
+              if r["gpu_ids"] != ["0"] or r["visible"] != "0" else []),
+            *([f"losses {r['losses']}, phase 8's {want}"]
+              if len(diff) != len(want) or
+              not all(d <= RUNTIME_LOSS_RTOL for d in diff) else []),
+            *([f"launches {counts}, expected {expect}"]
+              if counts != expect else []),
+            # the entrypoint's driver holds no lease: no pin of its own
+            # (the cluster's environment is what it inherits) and no CUDA
+            *([f"entrypoint CUDA_VISIBLE_DEVICES {drv['visible']!r}, the "
+               f"cluster's {os.environ.get('CUDA_VISIBLE_DEVICES')!r}"]
+              if drv["visible"] != os.environ.get("CUDA_VISIBLE_DEVICES")
+              else []),
+            *(["the entrypoint initialised CUDA"]
+              if drv["cuda_initialized"] else []),
+            *([f"the entrypoint {drv['pid']} is among the card's processes "
+               f"{drv['card_pids']}"]
+              if drv["card_pids"] and drv["pid"] in drv["card_pids"]
+              else [])]
+        if problems:
+            raise AssertionError(f"phase 22: {problems}")
+        step_ms = [x * 1e3 for x in r["step_s"]]
+        timed_ms = sum(step_ms[JOB_STEPS[0]:]) / JOB_STEPS[1]
+        card = ("the actor on the card's process list"
+                if drv["card_pids"] and r["pid"] in drv["card_pids"] else
+                f"nvidia-smi lists {drv['card_pids']}, not the actor's pid "
+                f"{r['pid']} (another pid namespace): not held by pid")
+        build_s = r["venv_built"] - r["venv_started"]
+        log(f"phase 22 train job: submit to RUNNING {to_running} s; actor "
+            f"in {r['executable']} pinned to {r['gpu_ids']} "
+            f"(CUDA_VISIBLE_DEVICES {r['visible']}), probe {r['probe']}; "
+            f"venv built in {build_s} s (pyvenv.cfg to its marker); actor "
+            f"created {r['create_t'] - drv['start_t']} s after the "
+            f"entrypoint started, its __init__ {r['init_t'] - r['create_t']}"
+            f" s after the create, `import torch` there "
+            f"{r['import_s']} s (torch loaded before: {r['torch_before']}); "
+            f"actor start to the first step's end "
+            f"{r['first_step_t'] - r['init_t']} s")
+        log(f"phase 22 train job: losses {r['losses']}, phase 8's {want}, "
+            f"relative differences {diff}; launches {counts}; ms/step "
+            f"{step_ms} (timed mean {timed_ms}) against phase 8's "
+            f"{dense['step_ms']}; peak memory {r['peak_gib']} GiB on "
+            f"{r['device']}; entrypoint driver: CUDA_VISIBLE_DEVICES "
+            f"{drv['visible']!r}, torch loaded {drv['torch_loaded']}, CUDA "
+            f"initialised {drv['cuda_initialized']}; {card}")
+        # 7. a second job with the same pip env reuses the venv
+        jid2, status, to_done = submit("probe", ("SUCCEEDED", "FAILED",
+                                                 "STOPPED"))
+        r2 = _job_line(jobs.logs(jid2), "P22_RESULT")
+        if status != "SUCCEEDED" or r2["executable"] != r["executable"] or \
+                r2["venv_built"] != r["venv_built"] or \
+                r2["gpu_ids"] != ["0"]:
+            raise AssertionError(f"phase 22: the second job {status}: "
+                                 f"{r2}, the first's venv {r['executable']} "
+                                 f"built at {r['venv_built']}")
+        log(f"phase 22 probe job: the venv reused (its marker from "
+            f"{r2['venv_built']}, the first job's); env setup: first job "
+            f"{r['init_t'] - r['create_t']} s from the actor's create to its"
+            f" __init__ (the venv built in {build_s} s), second job "
+            f"{r2['init_t'] - r2['create_t']} s; submit to SUCCEEDED "
+            f"{to_done} s")
+        # 8. a third job stopped while its actor holds the card
+        jid3, _, _ = submit("hold", ("RUNNING",))
+        t0 = time.perf_counter()
+        while "P22_HOLDING" not in jobs.logs(jid3):
+            if time.perf_counter() - t0 > JOB_TIMEOUT_S:
+                raise AssertionError(f"phase 22: job {jid3} never held the "
+                                     f"card:\n{jobs.logs(jid3)[-4000:]}")
+            time.sleep(0.2)
+        held = _job_line(jobs.logs(jid3), "P22_HOLDING")
+        free = ray_tpu_torch.available_resources().get("GPU", 0.0)
+        if held["gpu_ids"] != ["0"] or free != 0.0:
+            raise AssertionError(f"phase 22: the holding job's actor on "
+                                 f"{held['gpu_ids']}, {free} GPU free")
+        cli("job", "stop", jid3)
+        t0 = time.perf_counter()
+        while ray_tpu_torch.available_resources().get("GPU", 0.0) != 1.0:
+            if time.perf_counter() - t0 > JOB_STOP_S:
+                raise AssertionError(
+                    f"phase 22: the card's share not back "
+                    f"{JOB_STOP_S} s after `job stop`: "
+                    f"{ray_tpu_torch.available_resources()}")
+            time.sleep(0.1)
+        back_s = time.perf_counter() - t0
+        status, _ = jobs.wait(jid3, ("STOPPED",), 30)
+        log(f"phase 22 hold job: {status}; its actor's `import torch` "
+            f"{held['import_s']} s; the card's share back {back_s} s after "
+            f"`job stop`")
+    except BaseException:
+        log(_session_log_tails(root=root))
+        raise
+    finally:
+        if connected:
+            ray_tpu_torch.shutdown()  # a connected driver only disconnects
+        # 9. the cluster stops and leaves nothing behind
+        if started:
+            stop = subprocess.run(
+                [sys.executable, "-m", "ray_tpu_torch", "stop"], env=env,
+                cwd=repo, capture_output=True, text=True, timeout=120)
+            t0 = time.perf_counter()
+            while session_leftovers(root)[0] and \
+                    time.perf_counter() - t0 < 30:
+                time.sleep(0.2)
+        left, arenas = session_leftovers(root)
+        for pid in left:
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+        for p in arenas:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+        shutil.rmtree(root, ignore_errors=True)
+    if stop.stdout != "cluster stopped\n" or left or arenas:
+        raise AssertionError(f"phase 22: `stop` said {stop.stdout!r} "
+                             f"{stop.stderr[-2000:]!r}; processes left "
+                             f"{left}, arenas left {arenas}")
+    log(f"phase 22: `stop` left no process and no arena; phase 22 done in "
+        f"{time.perf_counter() - t_phase} s")
+    return dict(counts, step_ms=timed_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5103,6 +5605,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     tuned = tune_and_workflow(train_tokens, remat, vit_train)
 
+    # Phase 22: runtime_env, jobs, the dashboard and the CLI.
+    gc.collect()
+    torch.cuda.empty_cache()
+    job_run = runtime_env_jobs(train_tokens, dense)
+
     def sharded_launches(counter):
         """Phase 12's launches of a counter: per rank by run, and in all."""
         by_run = {f"phase 12 {name}, per rank": [g[counter] for g in got]
@@ -5123,6 +5630,7 @@ def main() -> int:
                     + vit_train["bwd_launches"] + runtime["bwd_launches"]
                     + ingest["bwd_launches"] + mpmd_run["bwd_launches"]
                     + sum(v["bwd_launches"] for v in tuned.values())
+                    + job_run["bwd_launches"]
                     + sharded_launches("bwd_launches")[1])
     mosaic = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [{
@@ -5138,7 +5646,7 @@ def main() -> int:
         + vit_forward_launches + runtime["launches"]
         + ingest["launches"] + serving["launches"] + mpmd_run["launches"]
         + sum(v["launches"] for v in tuned.values())
-        + sharded_launches("launches")[1],
+        + job_run["launches"] + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
                              "train_remat_chunked": remat["launches"],
@@ -5158,6 +5666,7 @@ def main() -> int:
                                 enumerate(mpmd_run["launches_by_stage"])},
                              **{f"phase21_{k}": v["launches"]
                                 for k, v in tuned.items()},
+                             "phase22_job_actor": job_run["launches"],
                              **sharded_launches("launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -5207,6 +5716,8 @@ def main() -> int:
                                         mpmd_run["launches_by_stage"])},
                                  **{f"phase21_{k}": v["bwd_launches"]
                                     for k, v in tuned.items()},
+                                 "phase22_job_actor":
+                                     job_run["bwd_launches"],
                                  **sharded_launches("bwd_launches")[0]},
             "max_abs_err": max(r[g]["max_abs_err"] for r in bwd_rows
                                for g in (("dk", "dv") if name == "dkdv"

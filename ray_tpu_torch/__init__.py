@@ -286,7 +286,8 @@ __all__ = [
     "available_resources", "timeline", "ObjectRef", "ActorHandle", "ActorClass",
     "RemoteFunction", "TaskError", "ActorDiedError", "WorkerCrashedError",
     "ObjectLostError", "GetTimeoutError", "TaskCancelledError",
-    "method", "get_gpu_ids", "get_runtime_context", "LoggingConfig",
+    "method", "get_gpu_ids", "show_in_dashboard", "get_runtime_context",
+    "LoggingConfig",
     "resolve_device",
 ]
 
@@ -328,6 +329,14 @@ def get_gpu_ids() -> List[str]:
     set_visible_accelerators``)."""
     vis = os.environ.get("CUDA_VISIBLE_DEVICES")
     return [] if not vis else [v for v in vis.split(",") if v != ""]
+
+
+def show_in_dashboard(message: str, key: str = "") -> None:
+    """Attach a free-form status string to this worker, visible in the
+    dashboard's KV namespace (reference: ``ray.show_in_dashboard``)."""
+    w = _worker_mod.global_worker()
+    slot = key or w.worker_id.hex()
+    w.kv_put(f"msg:{slot}", str(message).encode("utf-8"), ns="dashboard")
 
 
 

@@ -254,9 +254,12 @@ class TaskRecord:
         self.env_spec = None
         renv = opts.get("runtime_env")
         if renv:
-            from .roadmap import not_ported
+            from ray_tpu_torch.runtime_env.pip_env import env_key as _ek
+            from ray_tpu_torch.runtime_env.pip_env import spawn_spec_from_renv
 
-            raise not_ported("runtime_env", "runtime_env")
+            self.env_spec = spawn_spec_from_renv(renv)
+            if self.env_spec is not None:
+                self.env_key = _ek(self.env_spec)
         strategy = self.strategy
         if isinstance(strategy, dict):
             strategy = tuple(sorted(strategy.items()))
@@ -332,9 +335,12 @@ class ActorRecord:
         self.env_spec = None
         renv = opts.get("runtime_env")
         if renv:
-            from .roadmap import not_ported
+            from ray_tpu_torch.runtime_env.pip_env import env_key as _ek
+            from ray_tpu_torch.runtime_env.pip_env import spawn_spec_from_renv
 
-            raise not_ported("runtime_env", "runtime_env")
+            self.env_spec = spawn_spec_from_renv(renv)
+            if self.env_spec is not None:
+                self.env_key = _ek(self.env_spec)
         self.state = A_PENDING
         self.worker_id: Optional[WorkerID] = None
         self.addr: Optional[str] = None

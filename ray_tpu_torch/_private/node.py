@@ -610,10 +610,28 @@ class NodeAgent:
         runtime-env workers launched by the runtime-env agent,
         ``runtime_env/pip.py`` / ``image_uri.py``)."""
         try:
-            from .roadmap import not_ported
+            if env_spec.get("tool") == "container":
+                from ray_tpu_torch.runtime_env.container import wrap_spawn
 
-            raise not_ported("runtime_env " + str(env_spec.get("tool")),
-                             "runtime_env")
+                paths = worker_sys_path()
+                self._spawn(
+                    sys.executable, paths, env_key,
+                    wrap=lambda argv, env: wrap_spawn(
+                        env_spec, argv, env, self.session_dir, paths))
+                return
+            if env_spec.get("tool") == "conda":
+                from ray_tpu_torch.runtime_env.conda_env import ensure_conda_env
+
+                venv = ensure_conda_env(env_spec)
+            else:
+                from ray_tpu_torch.runtime_env.pip_env import ensure_venv
+
+                venv = ensure_venv(env_spec)
+            # venv site-packages FIRST so requested packages override the
+            # parent environment's copies; parent paths follow so the
+            # framework and its deps stay importable.
+            paths = venv["site"] + os.pathsep + worker_sys_path()
+            self._spawn(venv["python"], paths, env_key)
         except Exception as e:  # noqa: BLE001
             # Runs on a builder thread: transport writes must be
             # marshalled onto the agent's event loop.
@@ -1139,6 +1157,42 @@ def agent_main():
     _run_with_optional_profile(lambda: agent_amain(args), "agent")
 
 
+def session_segments(session: str, prefix: str = "rtpt") -> List[str]:
+    """The shared-memory segments of the session named ``session`` (its
+    directory's name): the per-object segments carry the name's last eight
+    characters, the arena the first 16 hex digits of its sha1."""
+    import hashlib
+
+    tag = hashlib.sha1(session.encode()).hexdigest()[:16]
+    try:
+        names = os.listdir("/dev/shm")
+    except OSError:
+        return []
+    return [os.path.join("/dev/shm", n) for n in names
+            if n.startswith(prefix) and (session[-8:] in n or tag in n)]
+
+
+def session_leftovers(root: str, var: str = "RAY_TPU_TORCH_TMPDIR",
+                      prefix: str = "rtpt"):
+    """What the clusters whose sessions lie under ``root`` left running:
+    ``(pids, segments)``, the live processes whose environment has
+    ``var=root`` and the sessions' shared-memory segments."""
+    import glob
+
+    pids = []
+    for path in glob.glob("/proc/[0-9]*/environ"):
+        try:
+            with open(path, "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue
+        if f"{var}={root}".encode() in env:
+            pids.append(int(path.split("/")[2]))
+    segments = [p for s in sorted(glob.glob(os.path.join(root, "session_2*")))
+                for p in session_segments(os.path.basename(s), prefix)]
+    return pids, segments
+
+
 class HeadNode:
     """Driver-side handle that spawns and supervises the head process."""
 
@@ -1197,18 +1251,8 @@ class HeadNode:
                     pass
         # Best-effort cleanup of leaked shm segments for this session:
         # per-object segments (PyShmStore) and the native arena.
-        import hashlib
-
-        session = os.path.basename(self.session_dir)
-        tag = hashlib.sha1(session.encode()).hexdigest()[:16]
-        shm_dir = "/dev/shm"
-        try:
-            for name in os.listdir(shm_dir):
-                if name.startswith("rtpt") and (session[-8:] in name
-                                                or tag in name):
-                    try:
-                        os.unlink(os.path.join(shm_dir, name))
-                    except OSError:
-                        pass
-        except OSError:
-            pass
+        for path in session_segments(os.path.basename(self.session_dir)):
+            try:
+                os.unlink(path)
+            except OSError:
+                pass

@@ -117,7 +117,9 @@ def _prepared_runtime_env(opts: dict):
         key = None
     if key is not None and key in _RENV_WIRE_CACHE:
         return _RENV_WIRE_CACHE[key]
-    raise not_ported("runtime_env", "runtime_env")
+    from ray_tpu_torch.runtime_env import prepare_runtime_env
+
+    wire = prepare_runtime_env(renv)
     if key is not None:
         if len(_RENV_WIRE_CACHE) > 256:
             _RENV_WIRE_CACHE.clear()

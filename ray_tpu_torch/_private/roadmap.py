@@ -7,8 +7,8 @@ Each place that would reach one raises :func:`not_ported`, naming the
 from __future__ import annotations
 
 ITEMS = {
-    "runtime_env": "A12 (runtime_env: pip, conda, container)",
-    "tooling": "A13 (autoscaler, dashboard, job, client, static checks)",
+    "tooling": "A13 (autoscaler, static checks, ray:// client, "
+               "cross-language calls)",
     "rl": "A14 (rl/)",
 }
 

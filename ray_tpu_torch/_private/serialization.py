@@ -296,9 +296,13 @@ class _TensorFirst:
         self.base = base
 
     def __getitem__(self, cls):
+        # Another thread may be importing torch: sys.modules then holds a
+        # module without its attributes yet, and no value of their types
+        # can exist.
         torch = _sys.modules.get("torch")
-        if torch is not None and (cls is torch.Tensor
-                                  or cls is torch.nn.Parameter):
+        nn = getattr(torch, "nn", None)
+        if cls is getattr(torch, "Tensor", None) \
+                or cls is getattr(nn, "Parameter", None):
             return _reduce_tensor
         return self.base[cls]
 

@@ -1933,9 +1933,13 @@ class Worker:
             # the scheduling class: leases of different envs never mix.
             renv = opts.get("runtime_env")
             if renv:
-                from .roadmap import not_ported
+                from ray_tpu_torch.runtime_env.pip_env import (
+                    env_key, spawn_spec_from_renv)
 
-                raise not_ported("runtime_env", "runtime_env")
+                spec = spawn_spec_from_renv(renv)
+                if spec is not None:
+                    wire["renv_spawn"] = spec
+                    wire["env_key"] = env_key(spec)
             key = repr((sorted(wire["res"].items()), wire.get("pg"),
                         wire.get("bix"), wire.get("sched"),
                         wire.get("env_key")))

@@ -545,9 +545,34 @@ class Executor:
         renv = opts.get("runtime_env") or {}
         if not renv:
             return
-        from .roadmap import not_ported
+        from ray_tpu_torch.runtime_env import setup_runtime_env
 
-        raise not_ported("runtime_env", "runtime_env")
+        ctx = setup_runtime_env(
+            renv, fetch=lambda uri: self.worker.kv_get(uri, ns="pkg"),
+            apply=False)
+        self._hold_gpu_pin(ctx.env_vars)
+        ctx.apply()
+        # Env/cwd/sys.path mutations (e.g. CUDA_LAUNCH_BLOCKING) poison
+        # this worker for other tasks — retire it after this task like the
+        # reference's dedicated runtime-env workers.
+        if ctx.taints_worker and self.actor_id is None:
+            self.die_after_task = True  # raylint: disable=RTL151 (loop reads it only after the executor future resolves — happens-before)
+
+    def _hold_gpu_pin(self, env_vars: dict):
+        """``_pin_gpus`` ran first: a runtime env may not move a worker
+        that holds GPUs to other cards, or its first CUDA call would use
+        cards the GCS leased to someone else."""
+        if self.pinned_gpus is None:
+            return
+        from ..accelerators import GPUPinConflictError, get_accelerator_manager
+
+        var = get_accelerator_manager("GPU").get_visible_accelerator_ids_env_var()
+        pinned = os.environ.get(var)
+        if var in env_vars and str(env_vars[var]) != pinned:
+            raise GPUPinConflictError(
+                f"runtime_env env_vars sets {var}={env_vars[var]!r}, but "
+                f"this worker's lease pinned it to GPUs {self.pinned_gpus} "
+                f"({var}={pinned!r}); the lease's pin stays")
 
     def _pack_results(self, tid_bytes: bytes, values: List[Any],
                       register_shm: bool) -> List[dict]:

@@ -8,7 +8,8 @@ call.
 """
 
 from .accelerator import AcceleratorManager
-from .gpu import GPUAcceleratorManager, NeuronAcceleratorManager
+from .gpu import (GPUAcceleratorManager, GPUPinConflictError,
+                  NeuronAcceleratorManager)
 
 _MANAGERS = {"GPU": GPUAcceleratorManager(),
              "neuron_cores": NeuronAcceleratorManager()}
@@ -36,6 +37,7 @@ def detect_accelerator_resources() -> dict:
 __all__ = [
     "AcceleratorManager",
     "GPUAcceleratorManager",
+    "GPUPinConflictError",
     "NeuronAcceleratorManager",
     "get_accelerator_manager",
     "get_all_accelerator_managers",

@@ -19,6 +19,12 @@ from typing import Callable, Dict, List, Optional
 from .accelerator import AcceleratorManager
 
 
+class GPUPinConflictError(RuntimeError):
+    """A runtime env's ``env_vars`` would point a worker that holds GPUs
+    at other cards than its lease pinned it to: the lease wins, and the
+    task or actor fails before its first CUDA call."""
+
+
 class GPUAcceleratorManager(AcceleratorManager):
     resource_name = "GPU"
 

@@ -19,7 +19,6 @@ and finds no CUDA raises; it never trains on the CPU.
 from __future__ import annotations
 
 import os
-import time
 import uuid
 from typing import Any, Callable, Dict, List, Optional
 
@@ -671,19 +670,13 @@ class Tuner:
                     else:
                         trial.state = "ERROR"
                         trial.error = str(e)
-                if trial.state == "TERMINATED" and trial.last_result is None:
-                    # A fast trial can return before its reports drain
-                    # (report.remote and the run result ride different
-                    # channels). Settle briefly so searchers observe the
-                    # final metric and loggers write results BEFORE the
-                    # completion hooks close the trial's files. Bounded:
-                    # a trainable that never reported stalls this 1s.
-                    deadline = time.time() + 1.0
-                    while (trial.last_result is None
-                           and time.time() < deadline):
-                        drain_reports()
-                        if trial.last_result is None:
-                            time.sleep(0.02)
+                # A trial can return between two drains, its last reports
+                # not yet observed: its last_result (persisted, and what
+                # Tuner.restore keeps) would be an earlier iteration's.
+                # Every push landed before its run returned (tune_report
+                # waits on each), so one drain here observes them all
+                # before the searcher and the completion hooks.
+                drain_reports()
                 if searcher is not None:
                     searcher.on_trial_complete(trial.id, trial.last_result)
                 for cb in callbacks:

@@ -422,7 +422,15 @@ def test_port_sources_import_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/tune/trainable.py",
             "ray_tpu_torch/tune/external.py",
             "ray_tpu_torch/tune/integrations.py",
-            "ray_tpu_torch/workflow/__init__.py"} <= names
+            "ray_tpu_torch/workflow/__init__.py",
+            "ray_tpu_torch/runtime_env/runtime_env.py",
+            "ray_tpu_torch/runtime_env/pip_env.py",
+            "ray_tpu_torch/runtime_env/conda_env.py",
+            "ray_tpu_torch/runtime_env/container.py",
+            "ray_tpu_torch/job.py",
+            "ray_tpu_torch/dashboard/head.py",
+            "ray_tpu_torch/scripts.py",
+            "ray_tpu_torch/__main__.py"} <= names
     assert len(_port_sources()) > 10
     assert not bad, bad
 
@@ -472,7 +480,10 @@ def test_port_strings_name_no_ray_tpu_or_jax_module():
             "ray_tpu_torch/cluster_utils.py",
             "ray_tpu_torch/tune/tuner.py",
             "ray_tpu_torch/tune/trainable.py",
-            "ray_tpu_torch/workflow/__init__.py"} <= names
+            "ray_tpu_torch/workflow/__init__.py",
+            "ray_tpu_torch/runtime_env/container.py",
+            "ray_tpu_torch/job.py",
+            "ray_tpu_torch/scripts.py"} <= names
     bad = [hit for path in _port_sources() for hit in _spawned_names(path)]
     assert not bad, bad
 
@@ -501,7 +512,13 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch.util.invariants, ray_tpu_torch.cluster_utils\n"
         "import ray_tpu_torch.tune, ray_tpu_torch.tune.tuner\n"
         "import ray_tpu_torch.tune.external, ray_tpu_torch.workflow\n"
-        "# the HTTP proxy imports aiohttp only when it starts, data loads\n"
+        "import ray_tpu_torch.runtime_env, ray_tpu_torch.runtime_env.pip_env\n"
+        "import ray_tpu_torch.runtime_env.conda_env\n"
+        "import ray_tpu_torch.runtime_env.container, ray_tpu_torch.job\n"
+        "import ray_tpu_torch.dashboard, ray_tpu_torch.dashboard.grafana\n"
+        "import ray_tpu_torch.dashboard.ui, ray_tpu_torch.scripts\n"
+        "# the HTTP proxy and the dashboard import aiohttp only when they\n"
+        "# start, data loads\n"
         "# Arrow and pandas only at its edges, train.huggingface loads\n"
         "# transformers only for an HF Trainer, and tune its searchers'\n"
         "# and loggers' packages only when they are built\n"

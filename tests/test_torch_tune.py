@@ -420,17 +420,34 @@ def test_missing_packages_raise_the_same_actionable_errors(name):
 def _restore_scenario(name, tmp_path):
     """The reference's interrupted experiment: two of four trials crash at
     iteration 3 on their first run; ``Tuner.restore(restart_errored=True)``
-    re-runs them from their iteration-2 checkpoints."""
+    re-runs them from their iteration-2 checkpoints.
+
+    A finished trial's persisted last result is what the restore keeps.
+    The JAX package's tuner records it from the reports it has drained
+    when the trial's run returns, which under load can be an earlier
+    iteration's. So on the JAX package's first run each trial waits,
+    after its last report, until a callback has seen that report drained.
+    The port's tuner drains a finished trial's reports first, and its
+    trials run unaided (test_a_finished_trial_keeps_its_last_report
+    holds that alone)."""
     tune = _tune(name)
     train = importlib.import_module(f"{name}.train")
     storage = tmp_path / name
     marker_dir = storage / "markers"
     marker_dir.mkdir(parents=True)
 
+    class Drained(tune.Callback):
+        def on_trial_result(self, trial, result):
+            config = trial.config
+            (marker_dir / f"drained_{config['idx']}_"
+             f"{int(bool(config['crash']))}_{result['training_iteration']}"
+             ).write_text("x")
+
     def trainable(config):
         import json
         import os
         import tempfile
+        import time
 
         tune = __import__(f"{config['pkg']}.tune", fromlist=["tune"])
         Checkpoint = __import__(f"{config['pkg']}.train",
@@ -454,6 +471,12 @@ def _restore_scenario(name, tmp_path):
             tune.report({"score": it * (config["idx"] + 1),
                          "resumed_from": start, "training_iteration": it},
                         checkpoint=Checkpoint(d))
+        drained = (config["marker_dir"] + f"/drained_{config['idx']}_"
+                   f"{int(bool(config['crash']))}_4")
+        deadline = time.time() + 60
+        while config["pkg"] == "ray_tpu" and attempts == 1 \
+                and not os.path.exists(drained) and time.time() < deadline:
+            time.sleep(0.02)
 
     def summary(grid):
         return sorted((r.config["idx"], r.config["crash"],
@@ -468,8 +491,8 @@ def _restore_scenario(name, tmp_path):
                      "crash": tune.grid_search([True, False]),
                      "marker_dir": str(marker_dir), "pkg": name},
         tune_config=tune.TuneConfig(metric="score", mode="max"),
-        run_config=train.RunConfig(name="exp",
-                                   storage_path=str(storage))).fit()
+        run_config=train.RunConfig(name="exp", storage_path=str(storage),
+                                   callbacks=[Drained()])).fit()
     first = summary(grid)
     exp = str(storage / "exp")
     assert tune.Tuner.can_restore(exp)
@@ -491,6 +514,53 @@ def test_restore_resumes_to_the_same_grid(clusters, tmp_path, monkeypatch):
     assert all(row[2] for row in second) and len(second) == 4
     assert sorted(row[4] for row in second) == [0, 0, 2, 2]
     assert best == 1 and len(frame) == 4
+
+
+def test_a_finished_trial_keeps_its_last_report(clusters, tmp_path,
+                                                monkeypatch):
+    """The port's tuner persists a finished trial's last report where
+    that report lands, and the trial's run returns, while the tuner is
+    busy with the one before: a callback holds the tuner at iteration 3
+    while the trial reports iteration 4 and returns. A restore keeps
+    what was persisted."""
+    monkeypatch.setenv("RAY_TPU_TORCH_DISABLE_DEFAULT_LOGGERS", "1")
+    tune = _tune("ray_tpu_torch")
+
+    class Busy(tune.Callback):
+        def on_trial_result(self, trial, result):
+            if result["training_iteration"] == 3:
+                time.sleep(1.0)
+
+    def trainable(config):
+        import time
+
+        from ray_tpu_torch import tune
+
+        for it in range(1, 5):
+            if it == 4:  # the tuner drains iteration 3 alone meanwhile
+                time.sleep(0.2)
+            tune.report({"score": it * (config["idx"] + 1),
+                         "training_iteration": it})
+
+    def summary(grid):
+        return sorted((r.config["idx"], r.metrics["training_iteration"],
+                       r.metrics["score"]) for r in grid)
+
+    grid = tune.Tuner(
+        trainable, param_space={"idx": tune.grid_search([0, 1])},
+        # one at a time: the last trial's run ends the loop, with no later
+        # drain to mend its record
+        tune_config=tune.TuneConfig(metric="score", mode="max",
+                                    max_concurrent_trials=1),
+        run_config=importlib.import_module("ray_tpu_torch.train").RunConfig(
+            name="last", storage_path=str(tmp_path),
+            callbacks=[Busy()])).fit()
+    # the grid reads the reports' history; a restore reads the persisted
+    # last result of each finished trial
+    restored = tune.Tuner.restore(str(tmp_path / "last")).fit()
+    want = [(i, 4, 4 * (i + 1)) for i in range(2)]
+    assert summary(grid) == want
+    assert summary(restored) == want
 
 
 # --------------------------------------------------------------- GPU trials
