@@ -251,11 +251,11 @@ Phases, each of which raises on failure (the exit code is then not 0):
      16's, the bubble fraction, each stage's busy seconds, the bytes of
      a hop as the stages sent them and each stage's peak memory (their
      probe()) are printed; (b) the same
-     pipeline as gang MPMD_GANG, stage 1's mpmd.boundary.send armed
-     (stage_env) to kill its process at its first send of step 2: step
-     1, save_checkpoint, then step 2, which must fail with
-     PipelineMemberLost stamped with the pipeline's generation within
-     MPMD_DETECT_S; from_checkpoint under the same gang
+     pipeline (formed as gang MPMD_GANG, with save_checkpoint after (a)'s
+     step 1 and stage 1's mpmd.boundary.send armed through stage_env to
+     kill its process at its first send after (a)'s passes): the next
+     step must fail with PipelineMemberLost stamped with the pipeline's
+     generation within MPMD_DETECT_S; from_checkpoint under the same gang
      lands at generation + 1 and its step 2 loss equals (a)'s bit for
      bit. The card must be free after each pipeline; the cluster is shut
      down at the end, failures included;
@@ -270,7 +270,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
      within RUNTIME_LOSS_RTOL of phase 8's remat + chunked run, K2 at
      phase 8's remat rate a step, the first trial through 4 iterations and
      the last two stopped at iteration 2, the best result the finished
-     trial with the lowest last loss; (b) PopulationBasedTraining over four
+     trial with the lowest last loss; (b) PopulationBasedTraining over three
      ViT-B/16 Trainable trials with_resources {"GPU": 0.25} (phase 15's
      weights, images and labels, 6 iterations, a checkpoint of the
      parameters and AdamW state through save_pytree every iteration): every
@@ -305,18 +305,44 @@ Phases, each of which raises on failure (the exit code is then not 0):
      phase 8's, K2 n_layers a step forward and backward, read in the
      actor; the entrypoint's driver inherits no pin and opens no CUDA
      context (and is not on the card's process list); (b) a second job
-     whose actor finds the same venv built (its marker unchanged); (c) a
-     third job whose actor holds the card, stopped by `job stop`: the
-     card's share back within JOB_STOP_S. Submit to RUNNING, the venv's
-     build, the actors' start (`import torch` in an env worker, which is
-     not forked from the worker template), start to the first step,
-     ms/step against phase 8's and peak memory are printed; `stop` then
-     leaves no process and no rtpt_ arena of the cluster.
+     whose actor finds the same venv built (its marker unchanged) and
+     holds the card, stopped by `job stop`: the card's share back within
+     JOB_STOP_S. Submit to RUNNING, the venv's build, the actors' start
+     (`import torch` in an env worker, which is not forked from the
+     worker template), start to the first step, ms/step against phase
+     8's and peak memory are printed; `stop` then leaves no process and
+     no rtpt_ arena of the cluster;
+ 23. the autoscaler, a ray:// driver, an ActorPool and a C++ caller: a
+     head with no GPU and a TCP port (HeadNode(num_gpus=0, port=)), the
+     port's Autoscaler in this process over LocalNodeProvider with one
+     node type "h100" (AUTOSCALE_TYPE, min 0, max 1, idle timeout
+     AUTOSCALE_IDLE_S); the C++ caller (POOL_CPP) built with g++ against
+     ray_tpu_torch/native/cpp_client while the cluster starts. A driver
+     subprocess (POOL_DRIVER) connects with
+     ray_tpu_torch.client("ray://...").connect() and asks for two named
+     actors lm0, lm1 with num_gpus=0.5, a demand that makes the
+     autoscaler start the node; each draws LLAMA3_1B in bf16 on the card
+     from phase 8's seed 7 and answers next_tokens with the argmax of the
+     last position's logits (a forward under no_grad, K1 in every layer)
+     as numpy; util.ActorPool maps POOL_BATCHES prompt batches [4, 512]
+     (seed 23) through them; POOL_FN, registered with
+     cross_language.register_function, forwards to lm0, and the C++
+     caller sends it batch 0 over the head's TCP port; the actors are
+     killed. Held: the pool's and the C++ call's tokens equal this
+     process's forward of the same weights and batches; each actor on
+     ["0"]; K1 n_layers x the batches each actor served, n_layers more in
+     lm0 for the C++ call (144 in all); no torch in the driver; the node
+     terminated within AUTOSCALE_IDLE_S + AUTOSCALE_DOWN_S of the actors'
+     end, the GPU gone from cluster_resources and no process of the node
+     left; nothing of the cluster left after the head stops. Demand to
+     node registered, registered to both actors ready, ms a batch and
+     prompts/s through the pool, the C++ round trip, g++'s seconds, idle
+     to terminated and the phase's seconds are printed.
 Phases 2 and 6 also hold the kernels at ViT's call (128, 197, 12/12, 64,
 non-causal), phase 2 at each of phase 13's prefills (1, L, 32/8, 128)
 and phase 6 at an ep rank's (1, 2048, 32/8, 128). Phases run
-in the order 1-5, 13, 6-8, 16, 9-11, 14, 15, 12, 17, 18, 19, 20, 21, 22;
-phases 12, 15 and 17-22 print the seconds they took.
+in the order 1-5, 13, 6-8, 16, 9-11, 14, 15, 12, 17, 18, 19, 20, 21, 22,
+23; phases 12, 15 and 17-23 print the seconds they took.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -4237,13 +4263,15 @@ def mpmd_group_sq(stage_sq, layer_counts) -> dict:
 
 def mpmd_training(models, tokens, dense, lockstep):
     """Phase 20 (see the module docstring): its own
-    init(num_cpus=4, num_gpus=1, object_store_memory=8 << 30); (a) the
-    training run, held to phase 8's dense run; (b) the fault plane: a
-    stage killed mid-step by its boundary failpoint, PipelineMemberLost in
-    push time, the re-form from step 1's checkpoint at generation + 1 with
-    (a)'s step 2 loss bit for bit. The card must be free after each
-    pipeline; the cluster is shut down at the end, failures included.
-    Returns (a)'s launches by stage and the readings."""
+    init(num_cpus=4, num_gpus=1, object_store_memory=8 << 30); one
+    pipeline in gang MPMD_GANG: (a) the training run, held to phase 8's
+    dense run, with a checkpoint after step 1; (b) the fault plane: stage
+    1 killed at its first boundary send of the step after (a)'s by its
+    failpoint, PipelineMemberLost in push time, the re-form from step 1's
+    checkpoint at generation + 1 with (a)'s step 2 loss bit for bit. The
+    card must be free after each pipeline; the cluster is shut down at
+    the end, failures included. Returns (a)'s launches by stage and the
+    readings."""
     import shutil
     import tempfile
 
@@ -4275,12 +4303,21 @@ def mpmd_training(models, tokens, dense, lockstep):
     try:
         w = global_worker()
         log(f"phase 20: cluster up in {time.perf_counter() - t_phase} s")
-        # (a) the training run
+        # (a) the training run, on the pipeline that (b) kills: stage 1
+        # kills its own process at its first boundary send after (a)'s
+        # passes (each pass sends MPMD_MICROBATCHES from stage 1)
+        passes = 1 + sum(MPMD_STEPS)
+        kill = (f"mpmd.boundary.send.s1=hit"
+                f"{MPMD_MICROBATCHES * passes + 1}:kill")
         t0 = time.perf_counter()
-        pipe = mpmd.MPMDPipeline(cfg, host, **kw)
+        pipe = mpmd.MPMDPipeline(
+            cfg, host, gang_name=MPMD_GANG,
+            checkpoint_dir=os.path.join(ckdir, "b"),
+            stage_env={"RAY_TPU_TORCH_FAILPOINTS": kill,
+                       "RAY_TPU_TORCH_FAILPOINT_SEED": "20"}, **kw)
         try:
             form_s = time.perf_counter() - t0
-            passes = 1 + sum(MPMD_STEPS)
+            gen = pipe.generation
             # ---- the main path: counts reset just before, read just after
             info = _probe(pipe, reset=True)
             if any(i["gpu_ids"] != ["0"] or i["device"] != "cuda:0"
@@ -4296,7 +4333,7 @@ def mpmd_training(models, tokens, dense, lockstep):
             pipe._reset_step_state()
             store = [_store_back_to(w, level, "phase 20 (a) grad check")]
             losses, step_s, stats = [], [], []
-            for _ in range(sum(MPMD_STEPS)):
+            for n in range(sum(MPMD_STEPS)):
                 level = w.store.stats()["bytes_in_use"]
                 t1 = time.perf_counter()
                 losses.append(pipe.step(tokens))
@@ -4304,13 +4341,27 @@ def mpmd_training(models, tokens, dense, lockstep):
                 vjps.append(pipe.live_vjp_counts())
                 stats.append(dict(pipe.last_step_stats))
                 store.append(_store_back_to(w, level, "phase 20 (a) step"))
+                if n == 0:  # the warm-up step: (b) re-forms from here
+                    t1 = time.perf_counter()
+                    ckpt = pipe.save_checkpoint()
+                    save_s = time.perf_counter() - t1
             info = _probe(pipe)
             # ---- end of the main path
             launches = [{c: i["counts"][c] for c in COUNTERS} for i in info]
             hop_bytes = [i["bytes_sent"] / i["hops_sent"] for i in info]
+            # (b) the next step meets stage 1's failpoint
+            killed = info[1]["pid"]
+            t1 = time.perf_counter()
+            try:
+                pipe.step(tokens)
+            except mpmd.PipelineMemberLost as e:
+                lost, detect_s = e, time.perf_counter() - t1
+            else:
+                raise AssertionError("phase 20 (b): a step ran on with "
+                                     "stage 1 killed")
         finally:
             pipe.teardown()
-        _replicas_gone(ray_tpu_torch, what="phase 20 (a)")
+        _replicas_gone(ray_tpu_torch, what="phase 20 (a) killed pipeline")
         hold_pipelined("phase 20 (a)", first, norm, group_sq, dense,
                        MPMD_STAGES)
         if any(v != [0] * MPMD_STAGES for v in vjps):
@@ -4327,7 +4378,7 @@ def mpmd_training(models, tokens, dense, lockstep):
         if any(c != expect for c in launches):
             raise AssertionError(f"phase 20 (a): launches by stage "
                                  f"{launches}, expected {expect} each")
-        timed = step_s[MPMD_STEPS[0]:]
+        timed = step_s[MPMD_STEPS[0]:]  # after the warm-up's checkpoint
         ms = sum(timed) / len(timed) * 1e3
         lock = lockstep["pp=4 lockstep, M=4"]["step_ms"]
         log(f"phase 20 (a): {MPMD_STAGES} stage actors of {counts} layers "
@@ -4356,32 +4407,8 @@ def mpmd_training(models, tokens, dense, lockstep):
                         **{c: sum(x[c] for x in launches)
                            for c in COUNTERS})
 
-        # (b) the fault plane: stage 1 kills its own process at its first
-        # boundary send of step 2 (its sends of step 1 are hits 1-M)
-        kill = f"mpmd.boundary.send.s1=hit{MPMD_MICROBATCHES + 1}:kill"
-        pipe = mpmd.MPMDPipeline(
-            cfg, host, gang_name=MPMD_GANG,
-            checkpoint_dir=os.path.join(ckdir, "b"),
-            stage_env={"RAY_TPU_TORCH_FAILPOINTS": kill,
-                       "RAY_TPU_TORCH_FAILPOINT_SEED": "20"}, **kw)
-        try:
-            gen = pipe.generation
-            killed = _probe(pipe)[1]["pid"]
-            step1 = pipe.step(tokens)
-            t1 = time.perf_counter()
-            ckpt = pipe.save_checkpoint()
-            save_s = time.perf_counter() - t1
-            t1 = time.perf_counter()
-            try:
-                pipe.step(tokens)
-            except mpmd.PipelineMemberLost as e:
-                lost, detect_s = e, time.perf_counter() - t1
-            else:
-                raise AssertionError("phase 20 (b): step 2 ran on with "
-                                     "stage 1 killed")
-        finally:
-            pipe.teardown()
-        _replicas_gone(ray_tpu_torch, what="phase 20 (b) killed pipeline")
+        # (b) the fault plane: the kill, then the re-form from step 1's
+        # checkpoint
         if lost.generation != gen or lost.lost_stages != [1] or \
                 lost.checkpoint_path != ckpt or not detect_s < MPMD_DETECT_S:
             raise AssertionError(f"phase 20 (b): {lost!r} after {detect_s} "
@@ -4396,15 +4423,14 @@ def mpmd_training(models, tokens, dense, lockstep):
         finally:
             pipe.teardown()
         _replicas_gone(ray_tpu_torch, what="phase 20 (b) re-formed pipeline")
-        if regen != gen + 1 or step2 != losses[1] or step1 != losses[0]:
+        if regen != gen + 1 or step2 != losses[1]:
             raise AssertionError(
-                f"phase 20 (b): generation {gen} -> {regen}; step 1 loss "
-                f"{step1} ((a)'s {losses[0]}), step 2 after the re-form "
-                f"{step2} ((a)'s {losses[1]})")
-        log(f"phase 20 (b): gang {MPMD_GANG!r} at generation {gen}; step 1 "
-            f"loss {step1} equals (a)'s; merged checkpoint in {save_s} s; "
-            f"stage 1 (pid {killed}) killed at its first boundary send of "
-            f"step 2: {type(lost).__name__} (lost stages "
+                f"phase 20 (b): generation {gen} -> {regen}; step 2 after "
+                f"the re-form {step2} ((a)'s {losses[1]})")
+        log(f"phase 20 (b): gang {MPMD_GANG!r} at generation {gen}; merged "
+            f"checkpoint after step 1 in {save_s} s; stage 1 (pid {killed})"
+            f" killed at its first boundary send of step "
+            f"{sum(MPMD_STEPS) + 1}: {type(lost).__name__} (lost stages "
             f"{lost.lost_stages}, generation {lost.generation}) in "
             f"{detect_s} s (the chain's result timeout is 300 s); re-formed "
             f"from the checkpoint at generation {regen} in {reform_s} s; "
@@ -4433,11 +4459,11 @@ TUNE_LRS = (3e-4, 1e-4, 3e-2, 1e-1)
 TUNE_MAX_T = 4
 TUNE_GRACE = 2
 TUNE_CHUNK = 16384
-# (b) PBT over four ViT-B/16 trials at a quarter of the card each, phase
+# (b) PBT over three ViT-B/16 trials at a quarter of the card each, phase
 # 15's weights, images and labels in every trial and a checkpoint every
 # iteration; the last rate sends the loss up at its first update, so that
 # trial is the worst at iteration 2 and clones a donor.
-PBT_LRS = (3e-4, 1e-4, 3e-5, 1e-1)
+PBT_LRS = (3e-4, 1e-4, 1e-1)
 PBT_ITERS = 6
 PBT_INTERVAL = 2
 PBT_MUTATIONS = (3e-4, 1e-4)
@@ -4988,9 +5014,9 @@ def train(tokens, cfg):
 '''
 
 # The job's entrypoint (written into its working_dir): `python job22.py
-# train|probe|hold`. It connects through RAY_TPU_TORCH_ADDRESS, which the
+# train|hold`. It connects through RAY_TPU_TORCH_ADDRESS, which the
 # job manager sets, and starts one actor with the card in the pip env.
-JOB_SCRIPT = '''"""Phase 22's job: `python job22.py train|probe|hold`."""
+JOB_SCRIPT = '''"""Phase 22's job: `python job22.py train|hold`."""
 import json
 import os
 import subprocess
@@ -5301,36 +5327,31 @@ def runtime_env_jobs(tokens, dense):
             f"{r['device']}; entrypoint driver: CUDA_VISIBLE_DEVICES "
             f"{drv['visible']!r}, torch loaded {drv['torch_loaded']}, CUDA "
             f"initialised {drv['cuda_initialized']}; {card}")
-        # 7. a second job with the same pip env reuses the venv
-        jid2, status, to_done = submit("probe", ("SUCCEEDED", "FAILED",
-                                                 "STOPPED"))
-        r2 = _job_line(jobs.logs(jid2), "P22_RESULT")
-        if status != "SUCCEEDED" or r2["executable"] != r["executable"] or \
-                r2["venv_built"] != r["venv_built"] or \
-                r2["gpu_ids"] != ["0"]:
-            raise AssertionError(f"phase 22: the second job {status}: "
-                                 f"{r2}, the first's venv {r['executable']} "
-                                 f"built at {r['venv_built']}")
-        log(f"phase 22 probe job: the venv reused (its marker from "
-            f"{r2['venv_built']}, the first job's); env setup: first job "
+        # 7. a second job with the same pip env reuses the venv, and is
+        # stopped while its actor holds the card
+        jid2, _, _ = submit("hold", ("RUNNING",))
+        t0 = time.perf_counter()
+        while "P22_HOLDING" not in jobs.logs(jid2):
+            if time.perf_counter() - t0 > JOB_TIMEOUT_S:
+                raise AssertionError(f"phase 22: job {jid2} never held the "
+                                     f"card:\n{jobs.logs(jid2)[-4000:]}")
+            time.sleep(0.2)
+        held = _job_line(jobs.logs(jid2), "P22_HOLDING")
+        free = ray_tpu_torch.available_resources().get("GPU", 0.0)
+        if held["executable"] != r["executable"] or \
+                held["venv_built"] != r["venv_built"] or \
+                held["probe"] != "probe-22" or held["gpu_ids"] != ["0"] or \
+                held["visible"] != "0" or free != 0.0:
+            raise AssertionError(f"phase 22: the second job's actor {held}, "
+                                 f"{free} GPU free; the first's venv "
+                                 f"{r['executable']} built at "
+                                 f"{r['venv_built']}")
+        log(f"phase 22 hold job: the venv reused (its marker from "
+            f"{held['venv_built']}, the first job's); env setup: first job "
             f"{r['init_t'] - r['create_t']} s from the actor's create to its"
             f" __init__ (the venv built in {build_s} s), second job "
-            f"{r2['init_t'] - r2['create_t']} s; submit to SUCCEEDED "
-            f"{to_done} s")
-        # 8. a third job stopped while its actor holds the card
-        jid3, _, _ = submit("hold", ("RUNNING",))
-        t0 = time.perf_counter()
-        while "P22_HOLDING" not in jobs.logs(jid3):
-            if time.perf_counter() - t0 > JOB_TIMEOUT_S:
-                raise AssertionError(f"phase 22: job {jid3} never held the "
-                                     f"card:\n{jobs.logs(jid3)[-4000:]}")
-            time.sleep(0.2)
-        held = _job_line(jobs.logs(jid3), "P22_HOLDING")
-        free = ray_tpu_torch.available_resources().get("GPU", 0.0)
-        if held["gpu_ids"] != ["0"] or free != 0.0:
-            raise AssertionError(f"phase 22: the holding job's actor on "
-                                 f"{held['gpu_ids']}, {free} GPU free")
-        cli("job", "stop", jid3)
+            f"{held['init_t'] - held['create_t']} s")
+        cli("job", "stop", jid2)
         t0 = time.perf_counter()
         while ray_tpu_torch.available_resources().get("GPU", 0.0) != 1.0:
             if time.perf_counter() - t0 > JOB_STOP_S:
@@ -5340,7 +5361,7 @@ def runtime_env_jobs(tokens, dense):
                     f"{ray_tpu_torch.available_resources()}")
             time.sleep(0.1)
         back_s = time.perf_counter() - t0
-        status, _ = jobs.wait(jid3, ("STOPPED",), 30)
+        status, _ = jobs.wait(jid2, ("STOPPED",), 30)
         log(f"phase 22 hold job: {status}; its actor's `import torch` "
             f"{held['import_s']} s; the card's share back {back_s} s after "
             f"`job stop`")
@@ -5350,7 +5371,7 @@ def runtime_env_jobs(tokens, dense):
     finally:
         if connected:
             ray_tpu_torch.shutdown()  # a connected driver only disconnects
-        # 9. the cluster stops and leaves nothing behind
+        # 8. the cluster stops and leaves nothing behind
         if started:
             stop = subprocess.run(
                 [sys.executable, "-m", "ray_tpu_torch", "stop"], env=env,
@@ -5378,6 +5399,420 @@ def runtime_env_jobs(tokens, dense):
     log(f"phase 22: `stop` left no process and no arena; phase 22 done in "
         f"{time.perf_counter() - t_phase} s")
     return dict(counts, step_ms=timed_ms)
+
+
+# Phase 23: the autoscaler, a ray:// driver, an ActorPool and a C++ caller.
+# A head with no GPU and a TCP port; the port's Autoscaler in this process
+# over LocalNodeProvider, one node type "h100" of one card that it starts
+# for the driver's pending half-card actors and terminates once idle.
+AUTOSCALE_TYPE = {"CPU": 4.0, "GPU": 1.0}
+AUTOSCALE_IDLE_S = 5.0    # the node type's idle timeout
+AUTOSCALE_DOWN_S = 15.0   # idle to terminated within the timeout + this
+POOL_BATCHES = (8, 4, 512)  # batches of [prompts, tokens] through the pool
+POOL_SEED = 23
+POOL_WEIGHTS_SEED = 7     # phase 8's
+POOL_FN = "h100_next_tokens"
+
+# The ray:// driver (a subprocess): it connects over the head's TCP port,
+# asks for two named half-card actors that draw LLAMA3_1B on the card,
+# maps the prompt batches through an ActorPool of them, registers POOL_FN
+# for other languages and runs the C++ caller, then kills the actors. It
+# moves only numpy, so it never imports torch.
+POOL_DRIVER = '''"""Phase 23's ray:// driver: `python - config.json`."""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+import ray_tpu_torch as rt
+from ray_tpu_torch import cross_language
+from ray_tpu_torch.util import ActorPool
+
+cfg = json.load(open(sys.argv[1]))
+t0 = time.time()
+ctx = rt.client(cfg["address"]).namespace("p23").connect()
+out = {"connect_s": time.time() - t0}
+
+
+@rt.remote(num_gpus=0.5)
+class NextTokens:
+    """LLAMA3_1B at full width, bf16 on the card, from phase 8's seed."""
+
+    def __init__(self, seed):
+        import torch
+
+        from ray_tpu_torch import models
+        from ray_tpu_torch.ops import attention
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = models.LLAMA3_1B
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.params = models.init_params(self.cfg, gen, device="cuda")
+        torch.cuda.synchronize()
+        attention.launches = 0
+        self.ready_t = time.time()
+
+    def next_tokens(self, prompts):
+        """The argmax of the last position's logits, a forward under
+        no_grad (K1 in every layer)."""
+        import torch
+
+        from ray_tpu_torch import models
+
+        with torch.no_grad():
+            tokens = torch.from_numpy(np.asarray(prompts)).to("cuda").long()
+            logits = models.forward(self.params, tokens, self.cfg)
+            return logits[:, -1].argmax(-1).cpu().numpy().astype(np.int32)
+
+    def probe(self):
+        from ray_tpu_torch.ops import attention
+
+        return {"gpu_ids": rt.get_gpu_ids(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "launches": attention.launches, "pid": os.getpid(),
+                "ready_t": self.ready_t}
+
+
+def h100_next_tokens(prompts):
+    """The cross-language face: a batch of prompts (lists of ids) in, the
+    next token of each out, from lm0."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+
+    lm = rt.get_actor("lm0", namespace="p23")
+    nxt = lm.next_tokens.remote(np.asarray(prompts, dtype=np.int32))
+    return rt.get(nxt, timeout=600).tolist()
+
+
+prompts = np.load(cfg["prompts"])
+out["demand_t"] = time.time()
+lms = [NextTokens.options(name=f"lm{i}").remote(cfg["seed"])
+       for i in range(2)]
+ready = rt.get([a.probe.remote() for a in lms], timeout=600)
+out["ready_t"] = time.time()
+pool = ActorPool(lms)
+t0 = time.perf_counter()
+out["pool_tokens"] = [t.tolist() for t in pool.map(
+    lambda a, batch: a.next_tokens.remote(batch), list(prompts))]
+out["pool_s"] = time.perf_counter() - t0
+after_pool = rt.get([a.probe.remote() for a in lms], timeout=60)
+
+cross_language.register_function(cfg["function"], h100_next_tokens)
+t0 = time.perf_counter()
+while not os.path.exists(cfg["built"]):
+    if time.perf_counter() - t0 > 300:
+        raise SystemExit("the C++ caller never finished building")
+    time.sleep(0.05)
+out["build_wait_s"] = time.perf_counter() - t0
+built = json.load(open(cfg["built"]))
+if built["rc"] != 0:
+    raise SystemExit(f"g++ failed: {built['err']}")
+t0 = time.perf_counter()
+cpp = subprocess.run([cfg["binary"], cfg["gcs"], cfg["prompts_txt"]],
+                     capture_output=True, text=True, timeout=600)
+out["cpp_process_s"] = time.perf_counter() - t0
+if cpp.returncode != 0:
+    raise SystemExit(f"the C++ caller exited {cpp.returncode}: "
+                     f"{cpp.stdout} {cpp.stderr}")
+out["cpp"] = json.loads(next(line for line in cpp.stdout.splitlines()
+                             if line.startswith("P23_CPP "))[8:])
+out["probes"] = rt.get([a.probe.remote() for a in lms], timeout=60)
+out["pool_launches"] = [p["launches"] for p in after_pool]
+cross_language.unregister_function(cfg["function"])
+out["kill_t"] = time.time()
+for a in lms:
+    rt.kill(a)
+ctx.disconnect()
+out["torch"] = "torch" in sys.modules
+print("P23_RESULT " + json.dumps(out), flush=True)
+'''
+
+# The C++ caller (built with g++ against the port's client header while
+# the cluster starts): batch 0's prompts, one row of ids a line, sent to
+# POOL_FN; it prints the tokens and the call's round trip.
+POOL_CPP = r'''// Phase 23's C++ caller: p23 <gcs host:port> <prompts file>
+#include <chrono>
+#include <cstdio>
+#include <fstream>
+#include <sstream>
+#include <string>
+#include <vector>
+
+#include "ray_tpu_client.hpp"
+
+using ray_tpu_torch::Client;
+using ray_tpu_torch::Value;
+
+int main(int argc, char** argv) {
+  if (argc < 3) {
+    std::fprintf(stderr, "usage: %s <address> <prompts>\n", argv[0]);
+    return 2;
+  }
+  try {
+    Value batch;
+    batch.type = Value::ARRAY;
+    std::ifstream in(argv[2]);
+    std::string line;
+    while (std::getline(in, line)) {
+      if (line.empty()) continue;
+      Value row;
+      row.type = Value::ARRAY;
+      std::istringstream ids(line);
+      long long id;
+      while (ids >> id) row.arr.push_back(Client::make_int(id));
+      batch.arr.push_back(row);
+    }
+    Client client(argv[1]);
+    auto t0 = std::chrono::steady_clock::now();
+    Value out = client.call("h100_next_tokens", {batch}, 600.0);
+    double ms = std::chrono::duration<double, std::milli>(
+        std::chrono::steady_clock::now() - t0).count();
+    std::printf("P23_CPP {\"tokens\": [");
+    for (size_t i = 0; i < out.arr.size(); ++i)
+      std::printf("%s%lld", i ? ", " : "",
+                  static_cast<long long>(out.arr[i].i));
+    std::printf("], \"rows\": %zu, \"cols\": %zu, \"ms\": %.6f}\n",
+                batch.arr.size(),
+                batch.arr.empty() ? size_t{0} : batch.arr[0].arr.size(), ms);
+    return 0;
+  } catch (const std::exception& e) {
+    std::fprintf(stderr, "FAILED: %s\n", e.what());
+    return 1;
+  }
+}
+'''
+
+
+def _build_cpp(src, binary, include, marker):
+    """g++ of the C++ caller; its exit code, seconds and errors go to
+    ``marker`` (written last, by a rename), which the driver waits for."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(["g++", "-std=c++17", "-O2", "-o", binary,
+                               src, "-I", include], capture_output=True,
+                              text=True, timeout=300)
+        rec = {"rc": proc.returncode, "err": proc.stderr[-4000:]}
+    except (OSError, subprocess.TimeoutExpired) as e:
+        rec = {"rc": -1, "err": repr(e)}
+    rec["s"] = time.perf_counter() - t0
+    with open(marker + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.rename(marker + ".tmp", marker)
+
+
+def autoscaled_pool(models):
+    """Phase 23 (see the module docstring). Returns the actors' K1
+    launches."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.node import (HeadNode, pids_with_env,
+                                             session_leftovers)
+    from ray_tpu_torch.autoscaler import (Autoscaler, AutoscalerConfig,
+                                          LocalNodeProvider, NodeTypeConfig)
+
+    t_phase = time.perf_counter()
+    cfg = models.LLAMA3_1B
+    root = tempfile.mkdtemp(prefix="rta")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    # 1. the C++ caller builds while the cluster comes up
+    paths = {k: os.path.join(root, k) for k in
+             ("p23.cc", "p23", "p23.built", "prompts.npy", "prompts.txt",
+              "config.json")}
+    with open(paths["p23.cc"], "w") as f:
+        f.write(POOL_CPP)
+    builder = threading.Thread(target=_build_cpp, args=(
+        paths["p23.cc"], paths["p23"],
+        os.path.join(repo, "ray_tpu_torch", "native", "cpp_client"),
+        paths["p23.built"]), daemon=True)
+    builder.start()
+    prompts = np.random.default_rng(POOL_SEED).integers(
+        0, cfg.vocab_size, POOL_BATCHES, dtype=np.int32)
+    np.save(paths["prompts.npy"], prompts)
+    with open(paths["prompts.txt"], "w") as f:
+        f.writelines(" ".join(map(str, row)) + "\n" for row in prompts[0])
+    saved = os.environ.get("RAY_TPU_TORCH_TMPDIR")
+    os.environ["RAY_TPU_TORCH_TMPDIR"] = root
+    head = scaler = provider = None
+    connected = False
+    try:
+        # 2. the head (no GPU, a TCP port) and the autoscaler
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        head = HeadNode(num_cpus=2, num_gpus=0, probe_gpu=False, port=port,
+                        num_initial_workers=1)
+        provider = LocalNodeProvider(head.address, head.session_dir)
+        scaler = Autoscaler(AutoscalerConfig(
+            node_types={"h100": NodeTypeConfig(
+                resources=dict(AUTOSCALE_TYPE), min_workers=0,
+                max_workers=1)},
+            idle_timeout_s=AUTOSCALE_IDLE_S, update_interval_s=0.25),
+            provider, head.address)
+        scaler.start()
+        ray_tpu_torch.init(address=head.address)
+        connected = True
+        if "GPU" in ray_tpu_torch.cluster_resources():
+            raise AssertionError(f"phase 23: the head has a GPU: "
+                                 f"{ray_tpu_torch.cluster_resources()}")
+        log(f"phase 23: head at {head.tcp_address} (no GPU) up "
+            f"{time.perf_counter() - t_phase} s into the phase")
+        # 3. the ray:// driver
+        with open(paths["config.json"], "w") as f:
+            json.dump({"address": "ray://" + head.tcp_address,
+                       "gcs": head.tcp_address, "seed": POOL_WEIGHTS_SEED,
+                       "function": POOL_FN, "prompts": paths["prompts.npy"],
+                       "prompts_txt": paths["prompts.txt"],
+                       "binary": paths["p23"], "built": paths["p23.built"]},
+                      f)
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        for k in ("RAY_TPU_TORCH_ADDRESS", "RAY_TPU_TORCH_TMPDIR"):
+            env.pop(k, None)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-", paths["config.json"]],
+                              input=POOL_DRIVER, env=env, cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        driver_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 23: the driver exited "
+                                 f"{proc.returncode}:\n{proc.stdout[-4000:]}"
+                                 f"\n{proc.stderr[-6000:]}")
+        r = json.loads(next(line for line in proc.stdout.splitlines()
+                            if line.startswith("P23_RESULT "))[11:])
+        with open(paths["p23.built"]) as f:
+            built = json.load(f)
+        # 4. the node terminated once idle, and nothing of it left
+        (inst,) = scaler.im.instances.values()
+        node_env = f"RAY_TPU_TORCH_NODE_ID={inst.node_id_hex}"
+        deadline = r["kill_t"] + AUTOSCALE_IDLE_S + AUTOSCALE_DOWN_S
+        # the provider drops the instance before the autoscaler records
+        # its TERMINATING: wait for both
+        while time.time() < deadline and (
+                inst.state not in ("TERMINATING", "TERMINATED")
+                or provider.non_terminated_nodes() or pids_with_env(node_env)
+                or "GPU" in ray_tpu_torch.cluster_resources()):
+            time.sleep(0.1)
+        left_pids = pids_with_env(node_env)
+        resources = ray_tpu_torch.cluster_resources()
+        down_t = time.time()
+        history = {state: t for t, state, _ in inst.history}
+        if provider.non_terminated_nodes() or left_pids or \
+                "GPU" in resources or "TERMINATING" not in history:
+            raise AssertionError(
+                f"phase 23: {AUTOSCALE_IDLE_S + AUTOSCALE_DOWN_S} s after "
+                f"the actors went: instances "
+                f"{provider.non_terminated_nodes()}, the node's processes "
+                f"{left_pids}, resources {resources}, history "
+                f"{inst.history}")
+    except BaseException:
+        log(_session_log_tails(root=root))
+        raise
+    finally:
+        if connected:
+            ray_tpu_torch.shutdown()  # a connected driver only disconnects
+        if scaler is not None:
+            scaler.stop()
+        if provider is not None:
+            provider.terminate_all()
+        if head is not None:
+            head.stop()
+        t0 = time.perf_counter()
+        while session_leftovers(root)[0] and time.perf_counter() - t0 < 30:
+            time.sleep(0.2)
+        left, arenas = session_leftovers(root)
+        for pid in left:
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+        for p in arenas:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+        if saved is None:
+            os.environ.pop("RAY_TPU_TORCH_TMPDIR", None)
+        else:
+            os.environ["RAY_TPU_TORCH_TMPDIR"] = saved
+        builder.join(300)
+        shutil.rmtree(root, ignore_errors=True)
+    if left or arenas:
+        raise AssertionError(f"phase 23: processes left {left}, arenas left "
+                             f"{arenas}")
+    # 5. the same next tokens in process, from the same weights
+    gen = torch.Generator(device="cuda").manual_seed(POOL_WEIGHTS_SEED)
+    params = models.init_params(cfg, gen, device="cuda")
+    want = []
+    with torch.no_grad():
+        for batch in prompts:
+            tokens = torch.from_numpy(np.asarray(batch)).to("cuda").long()
+            logits = models.forward(params, tokens, cfg)
+            want.append(logits[:, -1].argmax(-1).cpu().numpy()
+                        .astype(np.int32).tolist())
+    del params, logits
+    launches = [p["launches"] for p in r["probes"]]
+    served = [n // cfg.n_layers for n in r["pool_launches"]]
+    problems = [
+        *([f"pool tokens {r['pool_tokens']}, in process {want}"]
+          if r["pool_tokens"] != want else []),
+        *([f"C++ tokens {r['cpp']['tokens']}, in process {want[0]}"]
+          if r["cpp"]["tokens"] != want[0]
+          or [r["cpp"]["rows"], r["cpp"]["cols"]] != list(POOL_BATCHES[1:])
+          else []),
+        *([f"actors pinned to "
+           f"{[(p['gpu_ids'], p['visible']) for p in r['probes']]}"]
+          if any(p["gpu_ids"] != ["0"] or p["visible"] != "0"
+                 for p in r["probes"]) else []),
+        *([f"K1 launches {launches} (after the pool {r['pool_launches']})"
+           f", expected {cfg.n_layers} x the batches each served, plus "
+           f"{cfg.n_layers} in lm0 for the C++ call, "
+           f"{cfg.n_layers * (POOL_BATCHES[0] + 1)} in all"]
+          if sum(launches) != cfg.n_layers * (POOL_BATCHES[0] + 1)
+          or sum(served) != POOL_BATCHES[0]
+          or any(n % cfg.n_layers for n in r["pool_launches"])
+          or launches != [r["pool_launches"][0] + cfg.n_layers,
+                          r["pool_launches"][1]] else []),
+        *(["the ray:// driver imported torch"] if r["torch"] else [])]
+    if problems:
+        raise AssertionError(f"phase 23: {problems}")
+    registered = history["RAY_RUNNING"]
+    idle_to_down = history["TERMINATING"] - r["kill_t"]
+    per_batch_ms = r["pool_s"] * 1e3 / POOL_BATCHES[0]
+    log(f"phase 23: demand to node registered {registered - r['demand_t']}"
+        f" s (instance allocated {history['ALLOCATED'] - r['demand_t']} s "
+        f"after the demand); node registered to both actors ready "
+        f"{r['ready_t'] - registered} s (each actor's __init__ done "
+        f"{[p['ready_t'] - registered for p in r['probes']]} s after); "
+        f"the driver's connect {r['connect_s']} s")
+    log(f"phase 23: the pool mapped {POOL_BATCHES[0]} batches of "
+        f"{POOL_BATCHES[1:]} in {r['pool_s']} s = {per_batch_ms} ms a batch,"
+        f" {POOL_BATCHES[0] * POOL_BATCHES[1] / r['pool_s']} prompts/s "
+        f"(the first batch on each actor included); batches served "
+        f"{served}; tokens equal the in-process forward's")
+    log(f"phase 23: the C++ call's round trip {r['cpp']['ms']} ms (its "
+        f"process {r['cpp_process_s']} s), its tokens {r['cpp']['tokens']} "
+        f"equal batch 0's; g++ {built['s']} s, the driver waited "
+        f"{r['build_wait_s']} s for it; K1 in the actors {launches}; "
+        f"actors pinned to {[p['gpu_ids'] for p in r['probes']]}; the "
+        f"driver loaded torch: {r['torch']}")
+    log(f"phase 23: idle to node terminated {idle_to_down} s (terminated "
+        f"{history.get('TERMINATED', down_t) - r['kill_t']} s, the GPU gone"
+        f" from cluster_resources and no process of the node "
+        f"{down_t - r['kill_t']} s after the actors went); the driver "
+        f"{driver_s} s; phase 23 done in {time.perf_counter() - t_phase} s")
+    return {"launches": sum(launches), "bwd_launches": 0,
+            "launches_by_actor": launches}
 
 
 def main() -> int:
@@ -5610,6 +6045,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     job_run = runtime_env_jobs(train_tokens, dense)
 
+    # Phase 23: the autoscaler starts an H100 node for a ray:// driver's
+    # ActorPool and a C++ caller, and terminates it once they are gone.
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool_run = autoscaled_pool(models)
+
     def sharded_launches(counter):
         """Phase 12's launches of a counter: per rank by run, and in all."""
         by_run = {f"phase 12 {name}, per rank": [g[counter] for g in got]
@@ -5646,7 +6087,8 @@ def main() -> int:
         + vit_forward_launches + runtime["launches"]
         + ingest["launches"] + serving["launches"] + mpmd_run["launches"]
         + sum(v["launches"] for v in tuned.values())
-        + job_run["launches"] + sharded_launches("launches")[1],
+        + job_run["launches"] + pool_run["launches"]
+        + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
                              "train_remat_chunked": remat["launches"],
@@ -5667,6 +6109,7 @@ def main() -> int:
                              **{f"phase21_{k}": v["launches"]
                                 for k, v in tuned.items()},
                              "phase22_job_actor": job_run["launches"],
+                             "phase23_pool_actors": pool_run["launches"],
                              **sharded_launches("launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],

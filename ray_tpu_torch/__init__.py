@@ -109,9 +109,13 @@ def init(address: Optional[str] = None, *,
             address = open(cur).read().strip() or None
     client_mode = False
     if address is not None and address.startswith("ray://"):
-        from ._private.roadmap import not_ported
-
-        raise not_ported("ray:// client drivers", "tooling")
+        # Remote-driver ("Ray Client") connection — reference:
+        # ``python/ray/util/client/`` ray:// proxy. Here the same control
+        # protocol serves remote drivers directly; client mode switches the
+        # object plane to the GCS transfer relay since no host store is
+        # shared with the cluster.
+        address = address[len("ray://"):]
+        client_mode = True
     if address is None:
         from ._private.node import HeadNode
 
@@ -130,6 +134,15 @@ def init(address: Optional[str] = None, *,
     _initialized = True
     atexit.register(shutdown)
     return address
+
+
+def client_server_address() -> Optional[str]:
+    """``ray://`` address remote drivers can connect to, if this cluster was
+    started with ``init(port=...)`` (reference: Ray Client server,
+    ``python/ray/util/client/server/``)."""
+    if _head_node is not None and _head_node.tcp_address:
+        return "ray://" + _head_node.tcp_address
+    return None
 
 
 def shutdown():
@@ -291,7 +304,25 @@ __all__ = [
     "resolve_device",
 ]
 
+import enum as _enum
 from dataclasses import dataclass as _dataclass
+
+
+class Language(_enum.Enum):
+    """Worker language of a remote function/actor (reference:
+    ``ray.Language`` — PYTHON/JAVA/CPP)."""
+
+    PYTHON = 0
+    JAVA = 1
+    CPP = 2
+
+
+# Process-role constants (reference: ray.SCRIPT_MODE etc.). LOCAL_MODE's
+# inline-execution behavior is deliberately NOT implemented — the
+# reference deprecated it; the constant exists for source compatibility.
+SCRIPT_MODE = 0
+WORKER_MODE = 1
+LOCAL_MODE = 2
 
 
 def __getattr__(name):
@@ -354,3 +385,82 @@ def exit_actor():
 
 
 __all__ += ["exit_actor"]
+
+
+def cpp_function(worker_name: str, fn_name: str):
+    """Handle to a named function served by a registered C++ worker
+    (reference: ``ray.cpp_function``; machinery:
+    ``ray_tpu_torch.cross_language`` + ``native/cpp_client``)."""
+    from ray_tpu_torch import cross_language as _xl
+
+    return _xl.cpp_function(worker_name, fn_name)
+
+
+def java_function(class_name: str, function_name: str):
+    """Unsupported: no JVM ships in this image (reference:
+    ``ray.java_function``). The msgpack cross-language protocol +
+    ``native/cpp_client`` C++ worker are the documented port template."""
+    raise NotImplementedError(
+        "java workers are not supported (no JVM in this image); see "
+        "ray_tpu_torch.cross_language + native/cpp_client for the language-"
+        "neutral protocol a Java client would implement")
+
+
+def java_actor_class(class_name: str):
+    """Unsupported — see ``java_function``."""
+    raise NotImplementedError(
+        "java workers are not supported (no JVM in this image); see "
+        "ray_tpu_torch.cross_language + native/cpp_client for the language-"
+        "neutral protocol a Java client would implement")
+
+
+class ClientContext:
+    """Live ``ray://`` connection (reference: ``ClientContext``)."""
+
+    def __init__(self, address: str):
+        self.address = address
+        self.dashboard_url = None
+
+    def disconnect(self):
+        shutdown()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.disconnect()
+
+
+class ClientBuilder:
+    """``ray_tpu_torch.client("host:port").connect()`` builder (reference:
+    ``ray.client`` / ``python/ray/client_builder.py``). Wraps the same
+    remote-driver join ``init(address="ray://...")`` performs."""
+
+    def __init__(self, address: str):
+        self._address = address
+        self._namespace = "default"
+
+    def namespace(self, ns: str) -> "ClientBuilder":
+        self._namespace = ns
+        return self
+
+    def connect(self) -> ClientContext:
+        addr = self._address
+        if not addr.startswith("ray://"):
+            addr = "ray://" + addr
+        init(address=addr, namespace=self._namespace)
+        return ClientContext(addr)
+
+
+def client(address: str) -> ClientBuilder:
+    return ClientBuilder(address)
+
+
+from ray_tpu_torch import autoscaler  # noqa: E402  (namespace parity)
+
+__all__ += [
+    "Language", "SCRIPT_MODE", "WORKER_MODE",
+    "LOCAL_MODE", "cpp_function", "java_function", "java_actor_class",
+    "client", "client_server_address", "ClientBuilder", "ClientContext",
+    "autoscaler",
+]

@@ -41,9 +41,10 @@ def default_session_root() -> str:
 
 
 def get_node_ip_address() -> str:
-    """The loopback address: the port's clusters are one host (joining
-    other hosts comes with the autoscaler, ROADMAP A13), so it never asks
-    for a route or a name outside it, as the reference's
+    """The loopback address: the port's clusters are one host (a worker VM
+    that the GCP launcher's cluster would add needs a routable address,
+    which no run without a network can check), so it never asks for a
+    route or a name outside it, as the reference's
     ``services.get_node_ip_address`` does."""
     return "127.0.0.1"
 
@@ -290,17 +291,39 @@ class FilePreemptionSource:
         return notice
 
 
+class GceMetadataPreemptionSource:
+    """GCE metadata-shaped source: the instance ``preempted`` key flips to
+    TRUE (and ``maintenance-event`` becomes non-NONE) ahead of a
+    preemption or a host maintenance — the advance signal a fleet of spot
+    or preemptible GPU VMs schedules around."""
+
+    BASE = "http://metadata.google.internal/computeMetadata/v1/instance/"
+    KEYS = (("preempted", "gce preemption"),
+            ("maintenance-event", "gce maintenance"))
+
+    def poll(self) -> Optional[dict]:
+        import urllib.request
+
+        for key, label in self.KEYS:
+            try:
+                req = urllib.request.Request(
+                    self.BASE + key, headers={"Metadata-Flavor": "Google"})
+                body = urllib.request.urlopen(
+                    req, timeout=1).read().decode().strip()
+            except Exception:
+                continue
+            if body and body.upper() not in ("FALSE", "NONE"):
+                return {"reason": f"{label}: {body}", "deadline_s": None}
+        return None
+
+
 def make_preemption_source(node_id: NodeID, session_dir: str):
     """Build this node's notice source from config (None = disabled)."""
     kind = _cfg().preemption_notice_source
     if kind == "none":
         return None
     if kind == "gce":
-        # a cloud metadata server is an outside host; the drain plane's
-        # sources beyond the file come with the autoscaler
-        from .roadmap import not_ported
-
-        raise not_ported("the gce preemption source", "tooling")
+        return GceMetadataPreemptionSource()
     path = _cfg().preemption_notice_file or os.path.join(
         session_dir, f"preempt-{node_id.hex()}")
     return FilePreemptionSource(path)
@@ -1139,6 +1162,11 @@ async def agent_amain(args):
                       if node_id_hex else None,
                       num_initial_workers=args.num_initial_workers,
                       env_overrides=json.loads(args.env or "{}"))
+    # SIGTERM (a node provider terminating the node) stops the agent as
+    # the GCS's shutdown does: the workers it forked, each in a session of
+    # its own, go with it instead of outliving it.
+    asyncio.get_running_loop().add_signal_handler(signal.SIGTERM,
+                                                  agent.stopped.set)
     await agent.start()
     await agent.run_until_stopped()
 
@@ -1172,13 +1200,13 @@ def session_segments(session: str, prefix: str = "rtpt") -> List[str]:
             if n.startswith(prefix) and (session[-8:] in n or tag in n)]
 
 
-def session_leftovers(root: str, var: str = "RAY_TPU_TORCH_TMPDIR",
-                      prefix: str = "rtpt"):
-    """What the clusters whose sessions lie under ``root`` left running:
-    ``(pids, segments)``, the live processes whose environment has
-    ``var=root`` and the sessions' shared-memory segments."""
+def pids_with_env(entry: str) -> List[int]:
+    """The live processes whose environment holds ``entry``
+    (``NAME=value``): a session's under its root, or a node's (its agent
+    and the workers it spawned carry ``RAY_TPU_TORCH_NODE_ID``)."""
     import glob
 
+    tag = entry.encode()
     pids = []
     for path in glob.glob("/proc/[0-9]*/environ"):
         try:
@@ -1186,11 +1214,21 @@ def session_leftovers(root: str, var: str = "RAY_TPU_TORCH_TMPDIR",
                 env = f.read().split(b"\0")
         except OSError:
             continue
-        if f"{var}={root}".encode() in env:
+        if tag in env:
             pids.append(int(path.split("/")[2]))
+    return pids
+
+
+def session_leftovers(root: str, var: str = "RAY_TPU_TORCH_TMPDIR",
+                      prefix: str = "rtpt"):
+    """What the clusters whose sessions lie under ``root`` left running:
+    ``(pids, segments)``, the live processes whose environment has
+    ``var=root`` and the sessions' shared-memory segments."""
+    import glob
+
     segments = [p for s in sorted(glob.glob(os.path.join(root, "session_2*")))
                 for p in session_segments(os.path.basename(s), prefix)]
-    return pids, segments
+    return pids_with_env(f"{var}={root}"), segments
 
 
 class HeadNode:

@@ -55,7 +55,12 @@ def _events():
     if _plane_events is None:
         import sys as _sys
 
-        _plane_events = _sys.modules.get("ray_tpu_torch.util.events")
+        mod = _sys.modules.get("ray_tpu_torch.util.events")
+        # Another thread may still be running the module's body (it is in
+        # sys.modules from its first line): bind it once that is done.
+        if not getattr(getattr(mod, "__spec__", None), "_initializing",
+                       False):
+            _plane_events = mod
     return _plane_events
 
 _LEN = struct.Struct("<I")

@@ -7,8 +7,8 @@ Each place that would reach one raises :func:`not_ported`, naming the
 from __future__ import annotations
 
 ITEMS = {
-    "tooling": "A13 (autoscaler, static checks, ray:// client, "
-               "cross-language calls)",
+    "tooling": "A13b (the static checks: analysis/, scripts.py check, "
+               "RAY_TPU_TORCH_STATIC_CHECKS at remote decoration)",
     "rl": "A14 (rl/)",
 }
 

@@ -778,6 +778,10 @@ class Worker:
             self._loop_thread.join(timeout=5)
         if self._store_obj is not None:
             self._store_obj.close()
+            if self.client_mode and hasattr(self._store_obj, "unlink"):
+                # A ray:// driver's arena is its own (no node maps it), so
+                # nothing else removes it once the driver has gone.
+                self._store_obj.unlink()
 
     async def _disconnect_async(self):
         # Push out anything still parked in the outbound queue (e.g. a

@@ -737,9 +737,13 @@ class Executor:
                 # msgpack result bytes out — the owner is not a Python
                 # process and reads the result directly
                 # (ray_tpu_torch/cross_language.py).
-                from .roadmap import not_ported
+                from ray_tpu_torch.cross_language import execute_xlang_task
 
-                raise not_ported("cross-language calls", "tooling")
+                tid_obj = TaskID(tid)
+                data = execute_xlang_task(fn, bytes(msg.get("args") or b""))
+                return [{"oid": ObjectID.for_task_return(
+                    tid_obj, 1).binary(), "nbytes": len(data),
+                    "data": data}]
             args, kwargs = self._load_args(msg)
             if opts.get("tp"):
                 # Tracing enabled: adopt the caller's span context so

@@ -4,8 +4,9 @@ Analog of the reference's ``ray`` CLI (``python/ray/scripts/scripts.py``):
 ``start/stop/status/list/summary/timeline/metrics/job/serve``. ``start
 --head --num-gpus N`` starts a head whose node offers N GPUs (without it
 a subprocess counts the cards); ``start --address HOST:P`` joins a node
-agent to it. ``check``, ``up`` and ``down`` wait for the static checks and
-the autoscaler (ROADMAP A13).
+agent to it. ``up`` and ``down`` launch and tear down a cluster of GPU VMs
+(``autoscaler/launcher.py``); ``check`` waits for the static checks
+(ROADMAP A13b).
 """
 
 from __future__ import annotations
@@ -256,16 +257,21 @@ def cmd_check(args):
 
 
 def cmd_up(args):
-    """Cluster launcher (reference: ``ray up``)."""
-    from ray_tpu_torch._private.roadmap import not_ported
+    """Cluster launcher (reference: ``ray up``, ``autoscaler/_private/
+    commands.py create_or_update_cluster``)."""
+    from ray_tpu_torch.autoscaler import launcher
 
-    raise not_ported("up (the autoscaler's cluster launcher)", "tooling")
+    out = launcher.up(args.config, no_start=args.no_start)
+    print(f"head {out['head_instance']} at {out['head_ip']} "
+          f"({out['num_hosts']} host(s))")
 
 
 def cmd_down(args):
-    from ray_tpu_torch._private.roadmap import not_ported
+    from ray_tpu_torch.autoscaler import launcher
 
-    raise not_ported("down (the autoscaler's cluster launcher)", "tooling")
+    killed = launcher.down(args.config)
+    print(f"terminated {len(killed)} instance(s): {', '.join(killed)}"
+          if killed else "nothing to terminate")
 
 
 def main(argv=None):
@@ -303,15 +309,13 @@ def main(argv=None):
     p.add_argument("paths", nargs=argparse.REMAINDER)
     p.set_defaults(fn=cmd_check)
 
-    p = sub.add_parser("up", help="launch a cluster from YAML (not in "
-                       "ray_tpu_torch yet)")
+    p = sub.add_parser("up", help="launch a cloud GPU cluster from YAML")
     p.add_argument("config", help="cluster YAML (see autoscaler/launcher.py)")
     p.add_argument("--no-start", action="store_true",
                    help="provision + setup only, don't start the runtime")
     p.set_defaults(fn=cmd_up)
 
-    p = sub.add_parser("down", help="tear down a cluster (not in "
-                       "ray_tpu_torch yet)")
+    p = sub.add_parser("down", help="tear down a cloud GPU cluster")
     p.add_argument("config")
     p.set_defaults(fn=cmd_down)
 

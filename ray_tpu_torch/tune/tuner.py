@@ -53,22 +53,24 @@ class _TuneCollector:
     def __init__(self):
         self.reports: Dict[str, List[dict]] = {}
         self.checkpoints: Dict[str, str] = {}
-        self.cursor: Dict[str, int] = {}
+        # (trial id, metrics) in the order the pushes came
+        self.arrivals: List[tuple] = []
+        self.cursor = 0
 
     def push(self, trial_id: str, metrics: dict, checkpoint_path):
         self.reports.setdefault(trial_id, []).append(metrics)
+        self.arrivals.append((trial_id, metrics))
         if checkpoint_path:
             self.checkpoints[trial_id] = checkpoint_path
         return True
 
     def new_reports(self):
-        """Reports not yet seen by the controller."""
-        out = []
-        for tid, hist in self.reports.items():
-            start = self.cursor.get(tid, 0)
-            for r in hist[start:]:
-                out.append((tid, r))
-            self.cursor[tid] = len(hist)
+        """Reports not yet seen by the controller, in the order they came:
+        a scheduler that ranks the population (PBT's quantiles) sees each
+        report beside the others' reports made before it, not a whole
+        trial's batch ahead of the rest."""
+        out = self.arrivals[self.cursor:]
+        self.cursor = len(self.arrivals)
         return out
 
     def state(self):
@@ -657,6 +659,16 @@ class Tuner:
                     except Exception:
                         pass
                     trial.pg = None
+                # A trial can return between two drains, its last reports
+                # not yet observed. Every push landed before its run
+                # returned (tune_report waits on each), so one drain here,
+                # while the trial is still RUNNING, observes them all:
+                # each gets its scheduler decision (a PBT exploit made at a
+                # report the trial ran past still clones it), and its
+                # last_result (persisted, and what Tuner.restore keeps) is
+                # its last iteration's before the searcher and the
+                # completion hooks see it.
+                drain_reports()
                 try:
                     out = ray_tpu_torch.get(ref)
                     if not out.get("ok"):
@@ -670,13 +682,6 @@ class Tuner:
                     else:
                         trial.state = "ERROR"
                         trial.error = str(e)
-                # A trial can return between two drains, its last reports
-                # not yet observed: its last_result (persisted, and what
-                # Tuner.restore keeps) would be an earlier iteration's.
-                # Every push landed before its run returned (tune_report
-                # waits on each), so one drain here observes them all
-                # before the searcher and the completion hooks.
-                drain_reports()
                 if searcher is not None:
                     searcher.on_trial_complete(trial.id, trial.last_result)
                 for cb in callbacks:

@@ -7,7 +7,8 @@ and each test compares the two packages' statuses, info keys, logs and
 endpoints (names aside). The CLI (``python -m ray_tpu_torch``) runs as
 subprocesses on a cluster of its own: ``start --num-gpus``, ``status``,
 ``job submit``, ``job logs`` and ``stop``, which leaves no process or
-arena behind; ``check``, ``up`` and ``down`` wait for ROADMAP A13.
+arena behind; ``check`` waits for ROADMAP A13b, and ``up`` and ``down``
+reach the cluster launcher.
 
 Remote functions and job scripts are written inside the scenarios, so no
 worker imports this module (which imports JAX).
@@ -489,19 +490,29 @@ def test_the_cli_starts_runs_a_job_and_stops():
                                   ("up", "cluster.yaml"),
                                   ("down", "cluster.yaml")])
 def test_the_cli_tooling_commands_wait_for_a13(args, tmp_path):
+    """``check`` still waits for the static checks (A13b); ``up`` and
+    ``down`` reach the cluster launcher, which refuses a provider it does
+    not know before it runs a command (``tests/test_torch_autoscaler.py``
+    drives them on a recorded cloud)."""
     env = dict(os.environ, RAY_TPU_TORCH_TMPDIR=str(tmp_path),
                PYTHONPATH=str(REPO))
-    out = _cli(env, *args)
+    config = tmp_path / args[1]
+    config.write_text("cluster_name: c\nprovider:\n  type: aws\n")
+    out = _cli(env, args[0], str(config) if args[0] != "check" else args[1])
     assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr
-    assert "ROADMAP A13" in out.stderr and args[0] in out.stderr
+    if args[0] == "check":
+        assert "NotImplementedError" in out.stderr
+        assert "ROADMAP A13" in out.stderr and args[0] in out.stderr
+    else:
+        assert "NotImplementedError" not in out.stderr
+        assert "launcher provider 'aws' not supported" in out.stderr
 
 
 # -------------------------------------------------------------- copies
 
 # Copied from the reference with only their names changed; job.py (the
 # client in a cluster process, C8), ui.py (GPUs) and scripts.py (GPUs, the
-# address file, A13's commands) differ as CHANGES.md lists.
+# address file, A13b's check) differ as CHANGES.md lists.
 VERBATIM = ("dashboard/__init__.py", "dashboard/head.py",
             "dashboard/grafana.py", "__main__.py")
 

@@ -430,7 +430,21 @@ def test_port_sources_import_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/job.py",
             "ray_tpu_torch/dashboard/head.py",
             "ray_tpu_torch/scripts.py",
-            "ray_tpu_torch/__main__.py"} <= names
+            "ray_tpu_torch/__main__.py",
+            "ray_tpu_torch/cross_language.py",
+            "ray_tpu_torch/util/actor_pool.py",
+            "ray_tpu_torch/util/queue.py",
+            "ray_tpu_torch/util/multiprocessing.py",
+            "ray_tpu_torch/util/joblib.py",
+            "ray_tpu_torch/util/check_serialize.py",
+            "ray_tpu_torch/util/slo.py",
+            "ray_tpu_torch/util/accelerators.py",
+            "ray_tpu_torch/testing/mocks.py",
+            "ray_tpu_torch/autoscaler/autoscaler.py",
+            "ray_tpu_torch/autoscaler/node_provider.py",
+            "ray_tpu_torch/autoscaler/gcp.py",
+            "ray_tpu_torch/autoscaler/launcher.py",
+            "ray_tpu_torch/autoscaler/testing.py"} <= names
     assert len(_port_sources()) > 10
     assert not bad, bad
 
@@ -483,7 +497,9 @@ def test_port_strings_name_no_ray_tpu_or_jax_module():
             "ray_tpu_torch/workflow/__init__.py",
             "ray_tpu_torch/runtime_env/container.py",
             "ray_tpu_torch/job.py",
-            "ray_tpu_torch/scripts.py"} <= names
+            "ray_tpu_torch/scripts.py",
+            "ray_tpu_torch/autoscaler/node_provider.py",
+            "ray_tpu_torch/autoscaler/launcher.py"} <= names
     bad = [hit for path in _port_sources() for hit in _spawned_names(path)]
     assert not bad, bad
 
@@ -517,13 +533,23 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch.runtime_env.container, ray_tpu_torch.job\n"
         "import ray_tpu_torch.dashboard, ray_tpu_torch.dashboard.grafana\n"
         "import ray_tpu_torch.dashboard.ui, ray_tpu_torch.scripts\n"
+        "import ray_tpu_torch.cross_language, ray_tpu_torch.testing\n"
+        "import ray_tpu_torch.autoscaler.gcp\n"
+        "import ray_tpu_torch.autoscaler.launcher\n"
+        "import ray_tpu_torch.util.actor_pool, ray_tpu_torch.util.queue\n"
+        "import ray_tpu_torch.util.multiprocessing\n"
+        "import ray_tpu_torch.util.joblib, ray_tpu_torch.util.slo\n"
+        "import ray_tpu_torch.util.check_serialize\n"
+        "import ray_tpu_torch.util.accelerators\n"
         "# the HTTP proxy and the dashboard import aiohttp only when they\n"
         "# start, data loads\n"
         "# Arrow and pandas only at its edges, train.huggingface loads\n"
         "# transformers only for an HF Trainer, and tune its searchers'\n"
-        "# and loggers' packages only when they are built\n"
+        "# and loggers' packages only when they are built; util.joblib\n"
+        "# loads joblib, and the launcher yaml, only when used\n"
         "for m in ('aiohttp', 'pyarrow', 'pandas', 'transformers',\n"
-        "          'optuna', 'hyperopt', 'mlflow', 'wandb'):\n"
+        "          'optuna', 'hyperopt', 'mlflow', 'wandb', 'joblib',\n"
+        "          'yaml'):\n"
         "    assert m not in sys.modules, m\n"
         "from ray_tpu_torch.ops import attention\n"
         "assert attention.KERNELS == ('flash_fwd', 'flash_bwd', "

@@ -563,6 +563,92 @@ def test_a_finished_trial_keeps_its_last_report(clusters, tmp_path,
     assert summary(restored) == want
 
 
+def test_the_collector_hands_reports_over_in_arrival_order():
+    """C10: the tuner's drains give the scheduler the reports in the order
+    they came, so PBT ranks a trial's report beside the others' reports
+    made before it. Trial b reports iteration 1, trial a then reports
+    iteration 1, and b reports iteration 2 with a worse loss: in arrival
+    order b is in the bottom quantile at its perturbation and is
+    exploited; handed over trial by trial (b's two reports, then a's), b
+    is alone at its perturbation and PBT keeps it."""
+    from ray_tpu_torch.tune.schedulers import EXPLOIT
+    from ray_tpu_torch.tune.tuner import _TuneCollector
+
+    collector = _TuneCollector._cls()
+    pushes = [("b", {"loss": 5.0, "training_iteration": 1}),
+              ("a", {"loss": 1.0, "training_iteration": 1}),
+              ("b", {"loss": 9.0, "training_iteration": 2})]
+    for tid, metrics in pushes:
+        collector.push(tid, metrics, None)
+    drained = collector.new_reports()
+    assert drained == pushes
+    assert collector.new_reports() == []
+
+    def decisions(order):
+        pbt = _tune("ray_tpu_torch").PopulationBasedTraining(
+            metric="loss", mode="min", perturbation_interval=2,
+            hyperparam_mutations={"lr": [1e-3]}, seed=3)
+        return [(tid, m["training_iteration"], pbt.on_result(tid, m))
+                for tid, m in order]
+
+    assert decisions(drained)[-1] == ("b", 2, EXPLOIT)
+    by_trial = sorted(pushes, key=lambda p: p[0] != "b")
+    assert decisions(by_trial)[1][2] != EXPLOIT
+
+
+def test_an_exploit_reached_after_the_trial_returned_still_clones(
+        clusters, tmp_path, monkeypatch):
+    """C10: a trial can run to its end while the tuner is busy: trial 1
+    reports four iterations and returns while a callback holds the tuner
+    on trial 0's first report. Its reports are drained while it still
+    counts as running, so PBT's exploit at its iteration 2 (its loss the
+    worse) clones it from trial 0."""
+    monkeypatch.setenv("RAY_TPU_TORCH_DISABLE_DEFAULT_LOGGERS", "1")
+    tune = _tune("ray_tpu_torch")
+
+    class Busy(tune.Callback):
+        def on_trial_result(self, trial, result):
+            if trial.id == "trial_0000" and \
+                    result["training_iteration"] == 1:
+                time.sleep(1.5)
+
+    def trainable(config):
+        import time
+
+        from ray_tpu_torch import tune
+
+        if config["idx"] == 0:  # reports, then waits while trial 1 runs
+            tune.report({"loss": 1.0, "training_iteration": 1})
+            time.sleep(2.0)
+            for it in range(2, 5):
+                tune.report({"loss": 1.0 / it, "training_iteration": it})
+        elif config["idx"] == 1:  # starts after trial 0's first report
+            time.sleep(0.5)
+            for it in range(1, 5):
+                tune.report({"loss": 10.0 * it, "training_iteration": it})
+        else:  # the clone
+            tune.report({"loss": 0.1, "training_iteration": 1})
+
+    pbt = tune.PopulationBasedTraining(
+        metric="loss", mode="min", perturbation_interval=2,
+        hyperparam_mutations={"idx": [2]}, seed=3)
+    grid = tune.Tuner(
+        trainable, param_space={"idx": tune.grid_search([0, 1])},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    scheduler=pbt, max_concurrent_trials=2),
+        run_config=importlib.import_module("ray_tpu_torch.train").RunConfig(
+            name="late", storage_path=str(tmp_path),
+            callbacks=[Busy()])).fit()
+    assert not grid.errors, grid.errors
+    runs = {os.path.basename(r.path): (r.config["idx"],
+                                       r.metrics["training_iteration"])
+            for r in grid}
+    # trial 1 ran on to iteration 4 before its exploit was drained; its
+    # clone takes the donor's mutated config
+    assert runs == {"trial_0000": (0, 4), "trial_0001": (1, 4),
+                    "trial_0001r": (2, 1)}, runs
+
+
 # --------------------------------------------------------------- GPU trials
 
 
