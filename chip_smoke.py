@@ -122,9 +122,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
      one step and the forward as in (a), held to phase 8's dense run as
      phase 16 holds it, each
      rank's launches at the schedule's count, its hops (2 (M + S) - 3 a
-     step) and FSDP gathers (once a step) counted in bytes; a planted
-     fault in each (the embedding's gradient left unsummed over pp; the
-     outputs' cotangent summed over pp) must break the group rule; in (c)
+     step) and FSDP gathers (once a step) counted in bytes; in (c)
      a 4-layer small fp32 Llama on pp = 4 (M = 4) and pp = 2 x tp = 2 (M =
      2) against the CPU; and (d) also runs the dryrun's pipeline (pp = 2 x
      tp = 2) and MoE (ep = 2 x tp = 2) parts, and its MPMD part (three
@@ -264,15 +262,15 @@ Phases, each of which raises on failure (the exit code is then not 0):
      1, use_gpu=True, resources_per_worker={"GPU": 0.5})) trials of
      LLAMA3_1B at full width and depth (phase 8's weights, seed 7, and
      tokens, remat and the chunked loss, AdamW at the trial's rate, a
-     report a step) over the rates TUNE_LRS, ASHAScheduler(max_t 4, grace
+     report a step) over the rates TUNE_LRS, ASHAScheduler(max_t 3, grace
      period 2, reduction factor 2), two trials at a time: every trial on
      ["0"] and cuda:0, its first loss and the 3e-4 trial's losses 1-3
      within RUNTIME_LOSS_RTOL of phase 8's remat + chunked run, K2 at
-     phase 8's remat rate a step, the first trial through 4 iterations and
+     phase 8's remat rate a step, the first trial through 3 iterations and
      the last two stopped at iteration 2, the best result the finished
      trial with the lowest last loss; (b) PopulationBasedTraining over three
      ViT-B/16 Trainable trials with_resources {"GPU": 0.25} (phase 15's
-     weights, images and labels, 6 iterations, a checkpoint of the
+     weights, images and labels, 4 iterations, a checkpoint of the
      parameters and AdamW state through save_pytree every iteration): every
      trial on ["0"], each original trial's first loss within VIT_RTOL of
      phase 15's, at least one exploit, the clone's parameters and AdamW
@@ -306,8 +304,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
      actor; the entrypoint's driver inherits no pin and opens no CUDA
      context (and is not on the card's process list); (b) a second job
      whose actor finds the same venv built (its marker unchanged) and
-     holds the card, stopped by `job stop`: the card's share back within
-     JOB_STOP_S. Submit to RUNNING, the venv's build, the actors' start
+     holds the card's lease (no torch, no CUDA context), stopped by `job
+     stop`: the card's share back within JOB_STOP_S. Submit to RUNNING, the venv's build, the actors' start
      (`import torch` in an env worker, which is not forked from the
      worker template), start to the first step, ms/step against phase
      8's and peak memory are printed; `stop` then leaves no process and
@@ -337,12 +335,40 @@ Phases, each of which raises on failure (the exit code is then not 0):
      left; nothing of the cluster left after the head stops. Demand to
      node registered, registered to both actors ready, ms a batch and
      prompts/s through the pool, the C++ round trip, g++'s seconds, idle
-     to terminated and the phase's seconds are printed.
+     to terminated and the phase's seconds are printed;
+ 24. rl/'s learner stack and the Podracer tier: the pixel module at
+     ViT-B/16's widths (RL_PIXEL) on CatchEnv(RL_IMAGE) pixels, 17 tokens
+     and 12 heads of 64, fp32. First K2 at the learner's [512, 17, 12,
+     64] (forward with lse and backward) and K1 at a runner's [16, 17, 12,
+     64], each against its plain version, timed beside it and sdpa with
+     the fp32 bound. Then ray_tpu_torch.init(num_cpus=8, num_gpus=1),
+     whose worker template imports torch while (a) runs in this
+     process: a VtraceMeshLearner (4 ranks on
+     the card) from seed RL_SEED takes one update on RL_T x RL_B steps
+     that an EnvRunnerImpl on the card collected past an episode's end:
+     12 forward and 12 backward launches, dense_routes unchanged, its
+     stats within RL_STATS_RTOL and its parameters within RL_PARAM_ATOL
+     (but RL_PARAM_FLIP_SHARE of them, all within 2 lr) of the same update
+     through flash_attention_plain; then the runner's sample function on
+     RL_RUNNER_OBS observations, 12 launches, its logits and values held
+     to the plain attention's. ms an update, images/s, ms an env step and
+     peak GiB are printed. (b) On that cluster:
+     PodracerConfig(...).learners(use_gpu=True).build(), 2 runners x 4
+     envs on the CPU, fragments of 8, agg_fanin 2, broadcast_interval 2,
+     the mesh of 4: RL_UPDATES or more updates, every loss finite, the
+     learner's lease ["0"] and the runners' none in util.state's actor
+     rows, staleness recorded, weight_bcast_puts equal to the publishes;
+     each publish's seconds (the learner to the driver, the driver's put),
+     each runner's pulls and ms an env step are printed. (c) On the same
+     cluster once the card is free: one PPO iteration,
+     learners(num_learners=1, use_gpu=True), two CPU runners on
+     FlatCatch(8): the learner on ["0"], finite stats, get_state through
+     save_checkpoint and restore_from_path (and load_pytree) bit for bit.
 Phases 2 and 6 also hold the kernels at ViT's call (128, 197, 12/12, 64,
 non-causal), phase 2 at each of phase 13's prefills (1, L, 32/8, 128)
 and phase 6 at an ep rank's (1, 2048, 32/8, 128). Phases run
 in the order 1-5, 13, 6-8, 16, 9-11, 14, 15, 12, 17, 18, 19, 20, 21, 22,
-23; phases 12, 15 and 17-23 print the seconds they took.
+23, 24; phases 12, 15 and 17-24 print the seconds they took.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -2365,12 +2391,11 @@ LOCKSTEP_RUNS = {"pp=4 lockstep, M=4": 4, "pp=4 lockstep, M=2": 2}
 # summed pp times pp times each layer's) while the whole norm can hide it.
 # Read on an H100 80GB HBM3 (700 W): the sound runs' worst gap 3.2e-4
 # (the final norm's at pp = 2 x tp = 2, whose sums over tp run in another
-# order), the planted faults' 0.293 and 1.000.
+# order); the two faults, planted in phase 12's (f) and (g) until the
+# script's seconds went to phase 24, read 0.293 and 1.000. The CPU tests
+# hold each pipelined gradient to JAX's (tests/test_torch_parallel.py),
+# which either fault breaks.
 GROUP_RTOL = 5e-3
-# The faults planted in phase 12's pipeline, each one step on a mesh of
-# SHARDED_RUNS, that the group rule must refuse: fault -> run.
-PLANTED = {"embedding unsummed over pp": "(f) pp=2 x tp=2, M=4, remat",
-           "exit cotangent summed over pp": "(g) pp=2 x fsdp=2, M=2, remat"}
 
 
 class Pipelined:
@@ -2473,56 +2498,6 @@ def group_gaps(got_sq: dict, want_sq: dict, pp: int) -> dict:
     """Each group's relative gap from the reference's, at ``pp`` stages."""
     got, want = stage_norms(got_sq, pp), stage_norms(want_sq, pp)
     return {k: abs(got[k] - want[k]) / want[k] for k in want}
-
-
-def planted_fault(fault: str):
-    """A context in which the pipeline makes ``fault``: the embedding's
-    gradient left unsummed over pp (the entry's f the identity), or the
-    outputs' cotangent summed over pp where they leave (the exit's g summed
-    in the backward too)."""
-    import contextlib
-    from unittest import mock
-
-    from ray_tpu_torch.parallel import collectives, pipeline
-
-    if fault == "embedding unsummed over pp":
-        return mock.patch.object(pipeline, "allreduce_bwd",
-                                 lambda x, mesh, axis: x)
-    if fault == "exit cotangent summed over pp":
-        return mock.patch.object(
-            pipeline, "allreduce_fwd", lambda x, mesh, axis:
-            collectives.allreduce_bwd(collectives.allreduce_fwd(
-                x, mesh, axis), mesh, axis))
-    return contextlib.nullcontext()
-
-
-def pipelined_fault(models, parallel, cfg, tokens, sizes, microbatches,
-                    fault):
-    """One step's gradients of phase 8's weights pipelined on ``sizes``
-    with ``fault`` planted: the first loss and the group norms' squares."""
-    from ray_tpu_torch.parallel import collectives, training
-
-    mesh = parallel.make_mesh(parallel.MeshSpec(**sizes), device="cuda",
-                              backend="gloo")
-    params = parallel.to_pipeline_params(models.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(7), device="cuda"))
-    specs = parallel.pipelined_specs(params, mesh)
-    shards = parallel.shard_params(params, mesh, specs)
-    del params
-    models.trainable(shards)
-    with planted_fault(fault):
-        share = parallel.make_pipelined_loss(mesh, cfg, microbatches)(
-            shards, tokens, specs)
-        share.backward()
-    parallel.allreduce_grads(shards, mesh, specs)
-    out = dict(loss=float(collectives.allreduce(share.detach(), mesh,
-                                                training.SPLIT_AXES)),
-               group_sq=sharded_group_sq(parallel, shards, mesh, specs,
-                                         cfg))
-    del shards
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
 
 
 def pipeline_phase(models, parallel, attention, cfg, tokens, dense):
@@ -2910,11 +2885,6 @@ def sharded_rank(rank, tmp, tokens, moe_tokens):
             out["train"][name] = sharded_train(
                 models, parallel, attention, models.LLAMA3_1B, tokens,
                 sizes, remat, chunked, microbatches=micro)
-        out["planted"] = {
-            fault: pipelined_fault(models, parallel, models.LLAMA3_1B,
-                                   tokens, SHARDED_RUNS[run][0],
-                                   SHARDED_RUNS[run][4], fault)
-            for fault, run in PLANTED.items()}
         out["train"][EP_RUN] = sharded_train(
             models, parallel, attention, mixtral_train_cfg(models),
             moe_tokens.to("cuda"), dict(ep=WORLD), True, 0,
@@ -3089,18 +3059,6 @@ def sharded_training(models, parallel, attention, tokens, phase8,
                 f" GiB ({g['shard_params']} parameters), per step "
                 f"{json.dumps(g['traffic_per_step'])}")
         results[name] = got
-    for fault, run in PLANTED.items():
-        got = [r["planted"][fault] for r in ranks]
-        pp = SHARDED_RUNS[run][0]["pp"]
-        gaps = group_gaps(got[0]["group_sq"], phase8["dense"][0]["group_sq"],
-                          pp)
-        worst = max(gaps, key=gaps.get)
-        log(f"phase 12 planted fault ({fault}) on {run}: first loss "
-            f"{got[0]['loss']}; group norms' gaps from phase 8's "
-            f"{json.dumps(gaps)}, worst {worst} {gaps[worst]}")
-        if not gaps[worst] > GROUP_RTOL:
-            raise AssertionError(f"planted fault ({fault}): the group rule "
-                                 f"(GROUP_RTOL {GROUP_RTOL}) passes it")
     # (e)'s exchanges: a layer's dispatch and return, each in the forward,
     # remat's recompute and the backward; each an fp32 [E, C, D] buffer.
     cfg = mixtral_train_cfg(models)
@@ -4456,7 +4414,7 @@ def mpmd_training(models, tokens, dense, lockstep):
 # the first two rates are sane and the last two so large that their first
 # update sends the loss up, so these meet a rung that holds the first two.
 TUNE_LRS = (3e-4, 1e-4, 3e-2, 1e-1)
-TUNE_MAX_T = 4
+TUNE_MAX_T = 3
 TUNE_GRACE = 2
 TUNE_CHUNK = 16384
 # (b) PBT over three ViT-B/16 trials at a quarter of the card each, phase
@@ -4464,7 +4422,7 @@ TUNE_CHUNK = 16384
 # iteration; the last rate sends the loss up at its first update, so that
 # trial is the worst at iteration 2 and clones a donor.
 PBT_LRS = (3e-4, 1e-4, 1e-1)
-PBT_ITERS = 6
+PBT_ITERS = 4
 PBT_INTERVAL = 2
 PBT_MUTATIONS = (3e-4, 1e-4)
 PBT_SEED = 21
@@ -5070,10 +5028,9 @@ class Trainer:
         return {**imported, **step.train(tokens, step_cfg)}
 
     def hold(self):
-        torch, imported = self._torch()
-        self.x = torch.zeros(1 << 20, device="cuda")
-        torch.cuda.synchronize()
-        return {**imported, **self.probe()}
+        """Hold the card's lease; no torch, no CUDA context (the first
+        job's actor measured an env worker's `import torch`)."""
+        return self.probe()
 
 
 def card_pids():
@@ -5328,7 +5285,7 @@ def runtime_env_jobs(tokens, dense):
             f"{drv['visible']!r}, torch loaded {drv['torch_loaded']}, CUDA "
             f"initialised {drv['cuda_initialized']}; {card}")
         # 7. a second job with the same pip env reuses the venv, and is
-        # stopped while its actor holds the card
+        # stopped while its actor holds the card's lease
         jid2, _, _ = submit("hold", ("RUNNING",))
         t0 = time.perf_counter()
         while "P22_HOLDING" not in jobs.logs(jid2):
@@ -5362,9 +5319,8 @@ def runtime_env_jobs(tokens, dense):
             time.sleep(0.1)
         back_s = time.perf_counter() - t0
         status, _ = jobs.wait(jid2, ("STOPPED",), 30)
-        log(f"phase 22 hold job: {status}; its actor's `import torch` "
-            f"{held['import_s']} s; the card's share back {back_s} s after "
-            f"`job stop`")
+        log(f"phase 22 hold job: {status}; the card's share back {back_s} s "
+            f"after `job stop`")
     except BaseException:
         log(_session_log_tails(root=root))
         raise
@@ -5815,6 +5771,415 @@ def autoscaled_pool(models):
             "launches_by_actor": launches}
 
 
+# Phase 24: rl/'s learner stack and the Podracer tier. The pixel module at
+# ViT-B/16's widths on 64 x 64 x 1 CatchEnv pixels: 16 patches and the CLS
+# token, 17 tokens, 12 heads of 64 (the kernels take head dims 64 and
+# 128 only; the repo's pixel defaults' 8 would run dense_attention).
+RL_IMAGE = 64
+RL_PIXEL = {"patch_size": 16, "d_model": 768, "n_layers": 12,
+            "n_heads": 12, "d_ff": 3072}
+RL_SEED = 24
+RL_T, RL_B = 16, 32          # (a)'s batch: 512 images an update
+# CatchEnv(64)'s episodes are 63 steps, all 32 envs in step: a first
+# fragment of RL_WARM_STEPS puts (a)'s batch over their end, a done in
+# row 10 and the autoreset row that the mask drops in row 11.
+RL_WARM_STEPS = RL_IMAGE - 12
+RL_RUNNER_OBS = 16           # (a)'s runner call
+RL_UPDATES = 4               # (b)'s least updates
+RL_TIMED = 3                 # (a)'s timed updates after the held one
+# (a)'s update against the same update with flash_attention_plain. The
+# stats: fp32 sums over 512 rows and 12 layers in another order, held at
+# RL_STATS_RTOL. The parameters after one Adam step: where a gradient is
+# far from zero both steps are lr x its sign to within fp32 rounding, so
+# an entry may differ by more than RL_PARAM_ATOL only where the two
+# gradients straddle zero; such entries stay within 2 lr (two opposite
+# steps) and are at most RL_PARAM_FLIP_SHARE of all.
+RL_STATS_RTOL = 1e-4
+RL_PARAM_ATOL = 1e-6
+RL_PARAM_FLIP_SHARE = 1e-4
+# The runner's logits and values against the plain attention's: fp32
+# forwards that differ in the order of the attention's sums.
+RL_FWD_TOL = (1e-4, 1e-4)    # atol, rtol
+H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
+
+
+class FlatCatch:
+    """CatchEnv(size) with its pixels flattened, for PPO's MLP module."""
+
+    def __init__(self, size):
+        from ray_tpu_torch.rl import CatchEnv
+        from ray_tpu_torch.rl.pixel_env import Box
+
+        self.env = CatchEnv(size)
+        self.observation_space = Box(0.0, 1.0, (size * size,))
+        self.action_space = self.env.action_space
+
+    def reset(self, *, seed=None, options=None):
+        obs, info = self.env.reset(seed=seed)
+        return obs.reshape(-1), info
+
+    def step(self, action):
+        obs, reward, term, trunc, info = self.env.step(action)
+        return obs.reshape(-1), reward, term, trunc, info
+
+    def close(self):
+        pass
+
+
+def rl_kernel_rows(attention):
+    """The fp32 L = 17 calls of phase 24: the learner's forward with lse
+    and backward at [RL_T x RL_B, 17, 12, 64], a runner's forward at
+    [RL_RUNNER_OBS, 17, 12, 64], each timed beside its plain version and
+    sdpa, with the least time (fp32 operations at H100_FP32_FLOPS)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(RL_SEED)
+    L, H, D = 17, RL_PIXEL["n_heads"], 64
+    rows = {}
+    for name, B in (("learner", RL_T * RL_B), ("runner", RL_RUNNER_OBS)):
+        q, k, v = (torch.randn(B, L, H, D, generator=gen, device="cuda")
+                   for _ in range(3))
+        ms = time_ms(lambda: attention.flash_attention_fwd(q, k, v), 20)
+        plain = time_ms(lambda: attention.flash_attention_plain(
+            q, k, v, return_lse=True), 5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                      20)
+        nbytes = 4 * 4 * B * L * H * D
+        t_bytes = nbytes / H100_BYTES_PER_S
+        t_ops = 4 * B * H * D * L * L / H100_FP32_FLOPS
+        o, lse = attention.flash_attention_fwd(q, k, v)
+        ref, ref_lse = attention.flash_attention_plain(q, k, v,
+                                                       return_lse=True)
+        err, _ = hold(o, ref, FP32_TOL, FP32_TOL, f"phase 24 K2 {name}")
+        hold(lse, ref_lse, LSE_TOL, 0.0, f"phase 24 K2 lse {name}")
+        row = {"shape": f"B={B} L={L} H={H}/{H} D={D} non-causal fp32",
+               "fwd_ms": ms, "fwd_plain_ms": plain, "fwd_library_ms": lib,
+               "fwd_bound_ms": max(t_bytes, t_ops) * 1e3,
+               "fwd_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "fwd_max_abs_err": err}
+        if name == "learner":
+            do = torch.randn_like(q)
+            bwd = time_ms(lambda: attention.flash_attention_bwd(
+                q, k, v, o, lse, do), 20)
+            bwd_plain = time_ms(lambda: attention.flash_attention_bwd_plain(
+                q, k, v, o, lse, do), 5)
+            qg, kg, vg = (t.detach().requires_grad_(True)
+                          for t in (qt, kt, vt))
+            out = F.scaled_dot_product_attention(qg, kg, vg)
+            dot = do.transpose(1, 2)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), dot, retain_graph=True), 20)
+            got = attention.flash_attention_bwd(q, k, v, o, lse, do)
+            want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do)
+            bwd_err = max(hold_grad(g, w, FP32_GRAD_RULE,
+                                    f"phase 24 K2 bwd {n}")[0]
+                          for n, g, w in zip("qkv", got, want))
+            nbytes = 4 * (8 * B * L * H * D) + 2 * 4 * B * H * L
+            t_bytes = nbytes / H100_BYTES_PER_S
+            t_ops = 5 * 2 * B * H * D * L * L / H100_FP32_FLOPS
+            row.update({"bwd_ms": bwd, "bwd_plain_ms": bwd_plain,
+                        "bwd_library_ms": lib_bwd,
+                        "bwd_bound_ms": max(t_bytes, t_ops) * 1e3,
+                        "bwd_bound_by": ("bytes" if t_bytes >= t_ops
+                                         else "operations"),
+                        "bwd_max_abs_err": bwd_err})
+        rows[name] = row
+        log(f"phase 24 K2 at the {name}'s shape: {json.dumps(row)}")
+    return rows
+
+
+def _rl_counts(attention):
+    return {c: getattr(attention, c) for c in COUNTERS + ("dense_routes",)}
+
+
+def _rl_reset(attention):
+    for c in COUNTERS:
+        setattr(attention, c, 0)
+
+
+def rl_on_card(attention):
+    """Phase 24 (a) in this process: a VtraceMeshLearner (4 ranks on the
+    card) from seed RL_SEED, one update on RL_T x RL_B CatchEnv steps that
+    a runner on the card collected, held to the same update with
+    flash_attention_plain; then the runner's sample function on
+    RL_RUNNER_OBS observations, held to the plain attention's forward.
+    Returns the launches of both main paths and the timings."""
+    import cloudpickle
+    import numpy as np
+
+    from ray_tpu_torch.rl import CatchEnv, PixelModuleConfig, PodracerConfig
+    from ray_tpu_torch.rl import rl_module
+    from ray_tpu_torch.rl.env_runner import EnvRunnerImpl
+    from ray_tpu_torch.rl.mesh_learner import VtraceMeshLearner
+    from ray_tpu_torch.ops.quant import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = PixelModuleConfig(image_size=RL_IMAGE, channels=1, num_actions=3,
+                            **RL_PIXEL)
+    hp = PodracerConfig().hparams()
+    learner = VtraceMeshLearner(cfg, hp, n_devices=4, seed=RL_SEED,
+                                device="cuda")
+    plain = VtraceMeshLearner(cfg, hp, n_devices=4, seed=RL_SEED,
+                              device="cuda",
+                              attn_impl=attention.flash_attention_plain)
+    w0 = learner.get_weights()
+    plain.set_weights(w0)
+    n_params = sum(t.numel() for t in tree_leaves(w0))
+    runner = EnvRunnerImpl(
+        "catch", RL_B, cloudpickle.dumps(cfg), seed=RL_SEED,
+        env_fn_blob=cloudpickle.dumps(lambda: CatchEnv(RL_IMAGE)),
+        device="cuda")
+    runner.sample(w0, RL_WARM_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ro = runner.sample(w0, RL_T)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    batch = {k: ro[k] for k in ("obs", "actions", "logp", "rewards",
+                                "dones", "mask", "bootstrap_value")}
+    if ro["mask"].all() or not ro["dones"].any():
+        raise AssertionError("phase 24 (a): the batch has no episode end")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dense_before = attention.dense_routes
+    # ---- the main path: counts reset just before, read just after
+    _rl_reset(attention)
+    t0 = time.perf_counter()
+    stats = learner.update(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = _rl_counts(attention)
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_layers = RL_PIXEL["n_layers"]
+    if (counts["launches"] != n_layers or counts["bwd_launches"] != n_layers
+            or counts["dense_routes"] != dense_before):
+        raise AssertionError(f"phase 24 (a): the update launched {counts}, "
+                             f"want {n_layers} forward and backward and "
+                             f"dense_routes {dense_before}")
+    want = plain.update(batch)
+    for k, v in want.items():
+        if not (math.isfinite(stats[k]) and
+                abs(stats[k] - v) <= RL_STATS_RTOL * abs(v) + 1e-7):
+            raise AssertionError(f"phase 24 (a) {k}: {stats[k]}, plain {v}")
+    flips, total, worst = 0, 0, 0.0
+    for a, b in zip(tree_leaves(learner.params), tree_leaves(plain.params)):
+        d = (a.detach() - b.detach()).abs()
+        flips += int((d > RL_PARAM_ATOL).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    if worst > 2 * hp["lr"] or flips > RL_PARAM_FLIP_SHARE * total:
+        raise AssertionError(f"phase 24 (a): parameters differ from the "
+                             f"plain update's by up to {worst}, {flips} of "
+                             f"{total} beyond {RL_PARAM_ATOL}")
+    log(f"phase 24 (a): {n_params} parameters; update on [{RL_T}, {RL_B}] "
+        f"CatchEnv({RL_IMAGE}) steps: {json.dumps(stats)}; plain "
+        f"attention's {json.dumps(want)}; parameters within "
+        f"{RL_PARAM_ATOL} but {flips} of {total} (worst {worst}, lr "
+        f"{hp['lr']}); launches {json.dumps(counts)}")
+    del plain
+    # the timed updates (the held one was the first: cuBLAS's first calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RL_TIMED):
+        learner.update(batch)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3 / RL_TIMED
+    # the runner's sample function on the card, the updated weights
+    step = np.arange(RL_RUNNER_OBS)
+    obs = batch["obs"][step % RL_T, step]
+    params = learner.params
+    sample = rl_module.make_sample_fn(cfg)
+    g = torch.Generator(device="cuda").manual_seed(RL_SEED)
+    sample(params, obs, g)
+    torch.cuda.synchronize()
+    # ---- the main path: counts reset just before, read just after
+    _rl_reset(attention)
+    t0 = time.perf_counter()
+    actions, logp, values = sample(params, obs, g)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    runner_counts = _rl_counts(attention)
+    # ---- end of the main path
+    if (runner_counts["launches"] != n_layers
+            or runner_counts["bwd_launches"]
+            or runner_counts["dense_routes"] != dense_before):
+        raise AssertionError(f"phase 24 (a): the runner's call launched "
+                             f"{runner_counts}")
+    x = torch.from_numpy(obs).cuda()
+    with torch.no_grad():
+        got = rl_module.make_forward(cfg)(params, x)
+        ref = rl_module.make_forward(
+            cfg, attn_impl=attention.flash_attention_plain)(params, x)
+    for name, a, b in zip(("logits", "values"), got, ref):
+        hold(a, b, *RL_FWD_TOL, f"phase 24 (a) runner {name}")
+    if not np.allclose(values, ref[1].cpu().numpy(), atol=RL_FWD_TOL[0],
+                       rtol=RL_FWD_TOL[1]):
+        raise AssertionError("phase 24 (a): sampled values differ")
+    out = {"launches": counts, "runner_launches": runner_counts,
+           "update_ms": update_ms, "first_update_s": first_s,
+           "images_per_s": RL_T * RL_B / (update_ms / 1e3),
+           "env_step_ms": collect_s * 1e3 / (RL_T + 1),
+           "sample_ms": sample_ms, "peak_gib": peak,
+           "params": n_params}
+    log(f"phase 24 (a): {update_ms} ms an update ({RL_TIMED} timed), "
+        f"{out['images_per_s']} images/s, the first update {first_s} s; "
+        f"peak {peak} GiB; the runner on the card: {out['env_step_ms']} ms "
+        f"an env step of {RL_B} envs (forward included, {RL_T + 1} "
+        f"forwards), the sample function {sample_ms} ms on "
+        f"{RL_RUNNER_OBS} observations; (a) in "
+        f"{time.perf_counter() - t_phase} s")
+    del learner, runner, params
+    return out
+
+
+def _rl_rows(handles):
+    """util.state's rows of these actor handles."""
+    from ray_tpu_torch.util import state
+
+    rows = {a["actor_id"]: a for a in state.list_actors()}
+    return [rows[h._actor_id.hex()] for h in handles]
+
+
+def rl_cluster():
+    """Phase 24 (b) and (c) on the phase's cluster: the Podracer with its
+    learner leasing the card and its runners on the CPU, RL_UPDATES or
+    more updates; then PPO's learner on the card and a checkpoint round
+    trip."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private import serialization
+    from ray_tpu_torch.rl import CatchEnv, PodracerConfig, PPOConfig
+    from ray_tpu_torch.train.checkpoint import load_pytree
+    from ray_tpu_torch.ops.quant import tree_leaves
+
+    t_phase = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="rtt_rl")
+    try:
+        # (b) the Podracer
+        t0 = time.perf_counter()
+        serialization.reset_transport_stats()
+        pod = (PodracerConfig()
+               .environment("catch", env_fn=lambda: CatchEnv(RL_IMAGE))
+               .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                            rollout_fragment_length=8)
+               .aggregation(num_aggregators=1, agg_fanin=2, queue_depth=2)
+               .learners(use_gpu=True)
+               .training(broadcast_interval=2, pixel_model=RL_PIXEL)
+               .debugging(seed=RL_SEED)).build()
+        try:
+            built_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            while pod._updates_done < RL_UPDATES:
+                if pod.step(max_wall_s=120) == 0:
+                    raise AssertionError("phase 24 (b): no update in 120 s")
+            train_s = time.perf_counter() - t1
+            m = pod.metrics()
+            losses = m["learner_stats"]
+            learner_row, *runner_rows = _rl_rows(
+                [pod.learner] + pod.env_runner_group.runners)
+            timings = ray_tpu_torch.get(
+                [r.timings.remote() for r in pod.env_runner_group.runners])
+        finally:
+            pod.stop()
+        bad = [s for s in losses for v in s.values() if not math.isfinite(v)]
+        if bad or len(losses) != m["updates"]:
+            raise AssertionError(f"phase 24 (b): losses {losses}")
+        if learner_row["gpu_ids"] != ["0"] or any(
+                r["gpu_ids"] for r in runner_rows):
+            raise AssertionError(f"phase 24 (b): leases {learner_row}, "
+                                 f"{runner_rows}")
+        if not m["staleness"] or sum(m["staleness"].values()) < 2 * m[
+                "updates"]:
+            raise AssertionError(f"phase 24 (b): staleness {m['staleness']}")
+        if m["transport"]["weight_bcast_puts"] != m["published_versions"]:
+            raise AssertionError(f"phase 24 (b): {m['transport']} for "
+                                 f"{m['published_versions']} publishes")
+        log(f"phase 24 (b): {m['updates']} updates in {train_s} s (built in "
+            f"{built_s} s), {m['env_steps']} env steps; losses "
+            f"{json.dumps(losses)}; learner on {learner_row['gpu_ids']}, "
+            f"runners on {[r['gpu_ids'] for r in runner_rows]}; staleness "
+            f"{m['staleness']}; {m['published_versions']} publishes = "
+            f"{m['transport']['weight_bcast_puts']} puts, each (learner to "
+            f"driver s, the driver's put s) {m['publish_s']}; runners' pulls "
+            f"s {[t['pull_s'] for t in timings]}, ms an env step of 4 envs "
+            f"on the CPU {[t['env_step_ms'] for t in timings]}; restarts "
+            f"{m['runner_restarts']}, queue {m['queue_occupancy']}")
+        _replicas_gone(ray_tpu_torch, what="phase 24 (b)")
+        # (c) PPO's learner on the card, two CPU runners
+        t0 = time.perf_counter()
+        algo = (PPOConfig()
+                .environment("catch8", env_fn=lambda: FlatCatch(8))
+                .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                             rollout_fragment_length=16)
+                .learners(num_learners=1, use_gpu=True)
+                .training(minibatch_size=64, num_epochs=1)
+                .debugging(seed=RL_SEED)).build()
+        try:
+            out = algo.train()
+            (row,) = _rl_rows(algo.learner_group.learners)
+            state = algo.get_state()
+            algo.save_checkpoint(ckpt)
+            algo.train()
+            algo.restore_from_path(ckpt)
+            back = algo.get_state()
+            on_disk = load_pytree(ckpt)
+        finally:
+            algo.stop()
+        if row["gpu_ids"] != ["0"] or not all(
+                math.isfinite(v) for v in out["learner"].values()):
+            raise AssertionError(f"phase 24 (c): {row}, {out['learner']}")
+        for tree in (back["weights"], on_disk["weights"]):
+            if not all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(tree), tree_leaves(state["weights"]))):
+                raise AssertionError("phase 24 (c): the checkpoint did not "
+                                     "round-trip")
+        log(f"phase 24 (c): PPO on FlatCatch(8), learner on "
+            f"{row['gpu_ids']}, stats {json.dumps(out['learner'])}, the "
+            f"checkpoint round-tripped; (c) in {time.perf_counter() - t0} s")
+        _replicas_gone(ray_tpu_torch, what="phase 24 (c)")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"phase 24 (b) and (c) in {time.perf_counter() - t_phase} s")
+    return {"podracer_updates": m["updates"], "publish_s": m["publish_s"],
+            "pull_s": [t["pull_s"] for t in timings],
+            "env_step_ms_cpu": [t["env_step_ms"] for t in timings]}
+
+
+def rl_phase(attention):
+    """Phase 24: ray_tpu_torch.init(num_cpus=8, num_gpus=1) first, so that
+    its worker template imports torch while (a) runs in this process;
+    then (b) and (c) on that cluster, shut down at the end, failures
+    included."""
+    import tempfile
+
+    import ray_tpu_torch
+
+    t0 = time.perf_counter()
+    rows = rl_kernel_rows(attention)
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ.setdefault("RAY_TPU_TORCH_TMPDIR",
+                          tempfile.mkdtemp(prefix="rtt"))
+    t1 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=8, num_gpus=1, object_store_memory=8 << 30)
+    try:
+        log(f"phase 24: cluster up in {time.perf_counter() - t1} s")
+        card = rl_on_card(attention)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cluster = rl_cluster()
+    except BaseException:
+        log(_session_log_tails())
+        raise
+    finally:
+        ray_tpu_torch.shutdown()
+    log(f"phase 24 done in {time.perf_counter() - t0} s")
+    return {"rows": rows, **card, **cluster}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6051,6 +6416,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     pool_run = autoscaled_pool(models)
 
+    # Phase 24: rl/'s learner stack on the card, the Podracer and PPO.
+    gc.collect()
+    torch.cuda.empty_cache()
+    rl_run = rl_phase(attention)
+    rl_fwd = {"phase24_learner": rl_run["launches"]["launches"],
+              "phase24_runner": rl_run["runner_launches"]["launches"]}
+    rl_bwd = {"phase24_learner": rl_run["launches"]["bwd_launches"]}
+
     def sharded_launches(counter):
         """Phase 12's launches of a counter: per rank by run, and in all."""
         by_run = {f"phase 12 {name}, per rank": [g[counter] for g in got]
@@ -6072,6 +6445,7 @@ def main() -> int:
                     + ingest["bwd_launches"] + mpmd_run["bwd_launches"]
                     + sum(v["bwd_launches"] for v in tuned.values())
                     + job_run["bwd_launches"]
+                    + sum(rl_bwd.values())
                     + sharded_launches("bwd_launches")[1])
     mosaic = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [{
@@ -6088,7 +6462,7 @@ def main() -> int:
         + ingest["launches"] + serving["launches"] + mpmd_run["launches"]
         + sum(v["launches"] for v in tuned.values())
         + job_run["launches"] + pool_run["launches"]
-        + sharded_launches("launches")[1],
+        + sum(rl_fwd.values()) + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
                              "train_remat_chunked": remat["launches"],
@@ -6110,6 +6484,7 @@ def main() -> int:
                                 for k, v in tuned.items()},
                              "phase22_job_actor": job_run["launches"],
                              "phase23_pool_actors": pool_run["launches"],
+                             **rl_fwd,
                              **sharded_launches("launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -6127,6 +6502,14 @@ def main() -> int:
                         "device_ms": train["fwd_device_ms"],
                         "library_device_ms":
                             train["fwd_library_device_ms"]},
+        "rl_shapes": {r["shape"] + (", with lse" if k == "learner"
+                                    else ", with lse (the runner's call "
+                                    "runs without)"): {
+            "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
+            "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"],
+            "library_ms": r["fwd_library_ms"],
+            "max_abs_err": r["fwd_max_abs_err"]}
+            for k, r in rl_run["rows"].items()},
     }]
     for name, part in (("dkdv", "dK, dV"), ("dq", "dQ")):
         kernels.append({
@@ -6161,6 +6544,7 @@ def main() -> int:
                                     for k, v in tuned.items()},
                                  "phase22_job_actor":
                                      job_run["bwd_launches"],
+                                 **rl_bwd,
                                  **sharded_launches("bwd_launches")[0]},
             "max_abs_err": max(r[g]["max_abs_err"] for r in bwd_rows
                                for g in (("dk", "dv") if name == "dkdv"
@@ -6186,6 +6570,14 @@ def main() -> int:
                            "library_ms", "library_device_ms",
                            f"{name}_bound_ms")} for r in bwd_rows},
             "shape": train_shape,
+            "rl_shape": {rl_run["rows"]["learner"]["shape"]: {
+                "backward_ms": rl_run["rows"]["learner"]["bwd_ms"],
+                "plain_ms": rl_run["rows"]["learner"]["bwd_plain_ms"],
+                "bound_ms": rl_run["rows"]["learner"]["bwd_bound_ms"],
+                "bound_by": rl_run["rows"]["learner"]["bwd_bound_by"],
+                "library_ms": rl_run["rows"]["learner"]["bwd_library_ms"],
+                "max_abs_err": rl_run["rows"]["learner"]["bwd_max_abs_err"],
+                "computes": "dQ, dK and dV (both kernels)"}},
         })
     full = stats_rows[0]  # every key visible, at the ring shard shape
     kernels.append({

@@ -4839,6 +4839,11 @@ class GcsServer:
                             "node_id": a.node_id.hex() if a.node_id else "",
                             "pid": (self.workers[a.worker_id].pid
                                     if a.worker_id in self.workers else 0),
+                            # the cards its worker leases (the port's)
+                            "gpu_ids": (list(self.workers[a.worker_id]
+                                             .gpu_ids)
+                                        if a.worker_id in self.workers
+                                        else []),
                             "restarts": a.restarts_used,
                             "detached": a.detached,
                             "death_cause": a.death_cause or ""})

@@ -9,7 +9,8 @@ from __future__ import annotations
 ITEMS = {
     "tooling": "A13b (the static checks: analysis/, scripts.py check, "
                "RAY_TPU_TORCH_STATIC_CHECKS at remote decoration)",
-    "rl": "A14 (rl/)",
+    "rl": "A14b (rl/'s second half: dqn.py, sac.py, continuous.py, "
+          "cql.py, offline.py, dreamerv3.py)",
 }
 
 

@@ -366,7 +366,7 @@ def test_bwd_launch_checks_inputs_before_loading_a_kernel(monkeypatch):
 
 # -------------------------------------------------- package boundaries
 
-_FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "ray_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "optax", "ray_tpu")
 
 
 def _port_sources():
@@ -445,6 +445,11 @@ def test_port_sources_import_no_jax_and_no_ray_tpu():
             "ray_tpu_torch/autoscaler/gcp.py",
             "ray_tpu_torch/autoscaler/launcher.py",
             "ray_tpu_torch/autoscaler/testing.py"} <= names
+    # the RL slice's fifteen modules
+    assert {f"ray_tpu_torch/rl/{m}.py" for m in (
+        "__init__", "vtrace", "rl_module", "ppo_loss", "learner",
+        "mesh_learner", "pixel_env", "env_runner", "connectors", "replay",
+        "algorithm", "impala", "appo", "multi_agent", "podracer")} <= names
     assert len(_port_sources()) > 10
     assert not bad, bad
 
@@ -499,7 +504,9 @@ def test_port_strings_name_no_ray_tpu_or_jax_module():
             "ray_tpu_torch/job.py",
             "ray_tpu_torch/scripts.py",
             "ray_tpu_torch/autoscaler/node_provider.py",
-            "ray_tpu_torch/autoscaler/launcher.py"} <= names
+            "ray_tpu_torch/autoscaler/launcher.py",
+            "ray_tpu_torch/rl/podracer.py",
+            "ray_tpu_torch/rl/env_runner.py"} <= names
     bad = [hit for path in _port_sources() for hit in _spawned_names(path)]
     assert not bad, bad
 
@@ -541,6 +548,8 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch.util.joblib, ray_tpu_torch.util.slo\n"
         "import ray_tpu_torch.util.check_serialize\n"
         "import ray_tpu_torch.util.accelerators\n"
+        "import ray_tpu_torch.rl, ray_tpu_torch.rl.podracer\n"
+        "import ray_tpu_torch.rl.multi_agent, ray_tpu_torch.rl.appo\n"
         "# the HTTP proxy and the dashboard import aiohttp only when they\n"
         "# start, data loads\n"
         "# Arrow and pandas only at its edges, train.huggingface loads\n"
@@ -554,6 +563,42 @@ def test_importing_the_port_loads_no_jax_and_no_ray_tpu():
         "from ray_tpu_torch.ops import attention\n"
         "assert attention.KERNELS == ('flash_fwd', 'flash_bwd', "
         "'flash_stats')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{_FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_rl_builds_a_catch_podracer_without_gymnasium():
+    """With gymnasium hidden, ``ray_tpu_torch.rl`` imports, CatchEnv
+    carries plain spaces, and a Podracer config over it probes them to
+    the ViT pixel module (no cluster is started)."""
+    code = (
+        "import sys, types\n"
+        "sys.modules['gymnasium'] = None\n"
+        "import ray_tpu_torch.rl as rl\n"
+        "from ray_tpu_torch.rl.podracer import Podracer\n"
+        "cfg = (rl.PodracerConfig()\n"
+        "       .environment('catch', env_fn=lambda: rl.CatchEnv(64))\n"
+        "       .training(pixel_model={'patch_size': 16, 'd_model': 768,\n"
+        "                              'n_layers': 12, 'n_heads': 12,\n"
+        "                              'd_ff': 3072})\n"
+        "       .learners(use_gpu=True))\n"
+        "pod = types.SimpleNamespace(config=cfg)\n"
+        "probe = Podracer._probe_env_spaces(pod)\n"
+        "assert probe == {'shape': (64, 64, 1), 'num_actions': 3,\n"
+        "                 'obs_dim': 4096}, probe\n"
+        "m = rl.PixelModuleConfig(image_size=64, channels=1,\n"
+        "                         num_actions=3, **cfg.pixel_model)\n"
+        "assert m.vit.head_dim == 64 and m.vit.num_patches == 16\n"
+        "assert rl.CatchEnv.__mro__[1] is object\n"
+        "space = rl.CatchEnv(8).action_space\n"
+        "assert type(space).__module__ == 'ray_tpu_torch.rl.pixel_env'\n"
+        "assert 'gymnasium' not in [k for k, v in sys.modules.items()\n"
+        "                           if v is not None]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{_FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
