@@ -126,9 +126,12 @@ Phases, each of which raises on failure (the exit code is then not 0):
      step) and FSDP gathers (once a step) counted in bytes; in (c)
      a 4-layer small fp32 Llama on pp = 4 (M = 4) and pp = 2 x tp = 2 (M =
      2) against the CPU; and (d) also runs the dryrun's pipeline (pp = 2 x
-     tp = 2) and MoE (ep = 2 x tp = 2) parts, and its MPMD part (three
+     tp = 2) and MoE (ep = 2 x tp = 2) parts, its multi-host part (two
+     launcher processes of two ranks each on the card, meeting at a TCP
+     address over gloo: 2.5 across them), its MPMD part (three
      stage actors of the runtime sharing the card, 8 microbatches, 1F1B,
-     against the single program's loss); (h) ViT-B/16 at full width and
+     against the single program's loss) and its two 8B certificate
+     lines, reckoned for this card's memory; (h) ViT-B/16 at full width and
      depth on fsdp = 2 x tp = 2 (sharded_vit_loss_fn under VIT_RULES, the
      patch embed and head gathered over tp), phase 15's weights, images
      and labels, AdamW, one step and the forward as in (a): the first
@@ -388,11 +391,34 @@ Phases, each of which raises on failure (the exit code is then not 0):
      ray_tpu_torch/rl` against ray_tpu_torch/raylint_baseline.json exits
      0 with no findings, and a process that decorates a get-in-loop
      remote under RAY_TPU_TORCH_STATIC_CHECKS=1 warns RTL002.
+ 26. the 8B pipeline stages, after phase 5 frees the servers and before
+     phase 1's LLAMA3_8B weights go: tokens [1, 8192] from seed 26; (a)
+     the unsplit loss_fn (remat, chunked vocab 16384) under no_grad; (b)
+     split_llama_params(params, 4), the boundary activations from the
+     stage forwards under no_grad, then one build_stage_step step a
+     stage (AdamW 3e-4, weight decay 0.1, its first moment fp32) on a
+     clone of the stage's weights, last to first, each taking the next
+     stage's activation gradient: the last stage's loss within 2e-3 of
+     (a)'s, each other stage's output within 1e-2 (max-relative) of the
+     chained forward's, everything finite, each stage's state freed
+     before the next; (c) each stage's peak memory over what was
+     allocated before it, at or under stage_hbm_budget's worst case
+     for one card (batch 1, seq 8192, one microbatch, this card's
+     memory); (d) the last stage two more steps on the same input, its
+     loss falling over the three; ms a stage step (from the second
+     step where there is one); (e) K2's launches 2 x 8 forward and 8
+     backward a stage step, 32 and 24 forwards for (a) and (b)'s
+     boundaries, no stats kernel and no dense route; (f) the dryrun's
+     two 8B certificate lines for this card, which phase 12 (d) prints
+     (its tracing beside that phase's ranks); (g) K2's forward with lse
+     and its backward at the stage's call [1, 8192, 32/8, 128] causal
+     against their plain versions, with device times beside sdpa's and
+     the bounds.
 Phases 2 and 6 also hold the kernels at ViT's call (128, 197, 12/12, 64,
 non-causal), phase 2 at each of phase 13's prefills (1, L, 32/8, 128)
 and phase 6 at an ep rank's (1, 2048, 32/8, 128). Phases run
-in the order 1-5, 13, 6-8, 16, 9-11, 14, 15, 12, 17, 18, 19, 20, 21, 22,
-23, 24, 25; phases 12, 15 and 17-25 print the seconds they took.
+in the order 1-5, 26, 13, 6-8, 16, 9-11, 14, 15, 12, 17, 18, 19, 20, 21,
+22, 23, 24, 25; phases 12, 15 and 17-26 print the seconds they took.
 The last three lines are a JSON object describing each kernel, the
 card's name and power limit again, and the device record.
 """
@@ -3118,7 +3144,7 @@ def sharded_training(models, parallel, attention, tokens, phase8,
     if "error" in dry:
         raise dry["error"]
     losses = dry["losses"]
-    if set(losses) != {"sharded", "pipeline", "moe", "mpmd"}:
+    if set(losses) != {"sharded", "pipeline", "moe", "multihost", "mpmd"}:
         raise AssertionError(f"phase 12 (d): the dryrun ran {sorted(losses)}")
     log(f"phase 12 (d) dryrun_multichip({WORLD}) on this card (gloo), beside "
         f"the ranks: losses {json.dumps(losses)} in {dry['s']} s (waited "
@@ -6665,6 +6691,249 @@ def rl_phase(attention):
     return {"rows": rows, **card, **cluster, "phase25": second}
 
 
+# Phase 26: LLAMA3_8B's four pp stages at full geometry, one after another
+# on this card, from phase 1's bf16 weights (before they are freed), held
+# to the unsplit loss, the chained forward and stage_hbm_budget's model.
+CERT_STAGES = 4
+CERT_TOKENS = (1, 8192)
+CERT_SEED = 26
+CERT_CHUNK = 16384
+CERT_EXTRA_STEPS = 2
+# The last stage's loss against the unsplit loss_fn on the same weights:
+# both bf16 through the same layers and the chunked loss, the stage step's
+# forward through the kernel with lse and remat, the unsplit one under
+# no_grad; a few bf16 steps of a loss near 12 at most.
+CERT_LOSS_RTOL = 2e-3
+# A stage step's output against the chained forward under no_grad: the
+# same weights and inputs (bits expected), held max-relative.
+CERT_ACT_RTOL = 1e-2
+
+
+def _hold_counts(attention, want, dense_routes, what):
+    """The counters since the last ``_rl_reset`` against ``want`` (0 where
+    it names none), ``dense_routes`` unmoved from its value before."""
+    got = _rl_counts(attention)
+    want = {**{c: want.get(c, 0) for c in COUNTERS},
+            "dense_routes": dense_routes}
+    if got != want:
+        raise AssertionError(f"phase 26 {what}: launches {got}, expected "
+                             f"{want}")
+    return got
+
+
+def k2_8b_row(attention):
+    """Phase 26 (g): K2 at one 8B stage layer's call, [1, 8192, 32/8, 128]
+    causal bf16: the forward with lse and the whole backward held to their
+    plain versions (each timed by CUDA events around its one call), then
+    each call's device time (device_ms) beside sdpa's forward and
+    backward, and the bounds."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(CERT_SEED)
+    B, L, H, Hkv, D = 1, CERT_TOKENS[1], 32, 8, 128
+    q = torch.randn(B, L, H, D, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(B, L, Hkv, D, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    do = torch.randn(B, L, H, D, generator=gen, device="cuda").bfloat16()
+    where = f"phase 26 (g) B={B} L={L} H={H}/{Hkv} D={D} causal"
+
+    def events(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    o, lse = attention.flash_attention_fwd(q, k, v, True)
+    (want_o, want_lse), fwd_plain_ms = events(
+        lambda: attention.flash_attention_plain(q, k, v, causal=True,
+                                                return_lse=True))
+    fwd_err, _ = hold(o, want_o, BF16_ATOL, BF16_RTOL, f"{where} o")
+    hold(lse, want_lse, LSE_TOL, 0.0, f"{where} lse")
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, True)
+    want, bwd_plain_ms = events(lambda: attention.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=True))
+    bwd_err = max(hold_grad(g, w, BF16_GRAD_RULE, f"{where} d{n}")[0]
+                  for n, g, w in zip("qkv", got, want))
+    del want_o, want_lse, want
+    fwd_bound, fwd_by = attention_bound(B, L, H, Hkv, D, True)
+    (bwd_bound, bwd_by), _, _ = bwd_bounds(B, L, H, Hkv, D, True)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        fwd_lib = device_ms(sdpa, 10, fwd_bound)
+    graph = sdpa()
+    bwd_lib = device_ms(lambda: torch.autograd.grad(
+        graph, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 5,
+        bwd_bound)
+    del graph
+    row = {"shape": f"B={B} L={L} H={H}/{Hkv} D={D} causal bf16",
+           "fwd_ms": device_ms(lambda: attention.flash_attention_fwd(
+               q, k, v, True), 10, fwd_bound),
+           "fwd_plain_ms": fwd_plain_ms, "fwd_bound_ms": fwd_bound,
+           "fwd_bound_by": fwd_by, "fwd_library_ms": fwd_lib,
+           "fwd_max_abs_err": fwd_err,
+           "bwd_ms": device_ms(lambda: attention.flash_attention_bwd(
+               q, k, v, o, lse, do, True), 5, bwd_bound),
+           "bwd_plain_ms": bwd_plain_ms, "bwd_bound_ms": bwd_bound,
+           "bwd_bound_by": bwd_by, "bwd_library_ms": bwd_lib,
+           "bwd_max_abs_err": bwd_err,
+           "timing": "device_ms: CUDA events around calls queued behind a "
+                     "spin kernel; plain: CUDA events around its one call"}
+    log(f"phase 26 (g) K2 at the 8B stage shape: {json.dumps(row)}")
+    return row
+
+
+def certificate_phase(models, attention, params, cfg):
+    """Phase 26 (see the module docstring): LLAMA3_8B's CERT_STAGES
+    pipeline stages at full geometry, one after another on this card,
+    from phase 1's bf16 ``params``. Returns the counts, the stages' peaks,
+    budgets and ms, the losses and K2's row at the stage's shape."""
+    from ray_tpu_torch.parallel import dryrun
+    from ray_tpu_torch.parallel import mpmd_pipeline as mpmd
+
+    t_phase = time.perf_counter()
+    card, card_gib = dryrun.card_memory(0)
+    gen = torch.Generator(device="cuda").manual_seed(CERT_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, CERT_TOKENS, generator=gen,
+                           device="cuda")
+    targets = models.next_token_targets(tokens)
+    n_layers = mpmd.stage_layer_counts(cfg.n_layers, CERT_STAGES)
+    stages = mpmd.split_llama_params(params, CERT_STAGES)
+    counts, dense = {}, attention.dense_routes
+
+    # ---- phase 26's main path: counts reset just before each part, read
+    # just after
+    _rl_reset(attention)
+    with torch.no_grad():                                           # (a)
+        ref = float(models.loss_fn(params, {"tokens": tokens}, cfg,
+                                   remat=True, chunked_vocab=CERT_CHUNK))
+        counts["unsplit_forward"] = _hold_counts(
+            attention, {"launches": cfg.n_layers}, dense, "(a) unsplit loss")
+        _rl_reset(attention)
+        acts = [mpmd.stage_forward(stages[0], tokens, cfg, first=True)]
+        for i in range(1, CERT_STAGES - 1):
+            acts.append(mpmd.stage_forward(stages[i], acts[-1], cfg,
+                                           first=False))
+        counts["boundary_forwards"] = _hold_counts(
+            attention, {"launches": sum(n_layers[:-1])}, dense,
+            "(b) chained forwards")
+    if not math.isfinite(ref):
+        raise AssertionError(f"phase 26 (a): unsplit loss {ref}")
+    log(f"phase 26 (a): unsplit loss_fn (remat, chunked vocab "
+        f"{CERT_CHUNK}) on [1, {CERT_TOKENS[1]}] tokens, seed {CERT_SEED}: "
+        f"{ref}")
+
+    rows, g_next, losses = [], None, []
+    for i in reversed(range(CERT_STAGES)):                          # (b)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        p = _tree_map(lambda t: t.detach().clone(), stages[i])
+        make_opt, step_fn, kind = mpmd.build_stage_step(
+            cfg, i, CERT_STAGES, lr=LR, chunked_vocab=CERT_CHUNK)
+        opt = make_opt(p)
+        first = tokens if i == 0 else acts[i - 1]
+        second = targets if kind == "last" else g_next
+        per_step = {"launches": 2 * n_layers[i],
+                    "bwd_launches": n_layers[i]}
+        step_ms = []
+        steps = 1 + (CERT_EXTRA_STEPS if kind == "last" else 0)
+        for s in range(steps):
+            _rl_reset(attention)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(p, opt, first, second)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            counts[f"stage_{i}_step_{s + 1}"] = _hold_counts(
+                attention, per_step, dense, f"(e) stage {i} step {s + 1}")
+            if kind == "last":
+                loss, g = out
+                losses.append(float(loss))
+                if s == 0:
+                    g_next = g
+            else:
+                o, g = out if kind == "mid" else (out, None)
+                gap = float((o.float() - acts[i].float()).abs().max()
+                            / acts[i].float().abs().max())
+                if not gap <= CERT_ACT_RTOL:
+                    raise AssertionError(
+                        f"phase 26 (b) stage {i}: output {gap} of the "
+                        f"chained forward's largest, over {CERT_ACT_RTOL}")
+                same_bits = torch.equal(o, acts[i])
+                g_next = g
+            for name, t in (("output", out[0] if kind != "first" else out),
+                            ("g_act", g)):
+                if t is not None and not bool(torch.isfinite(t).all()):
+                    raise AssertionError(f"phase 26 (b) stage {i}: "
+                                         f"non-finite {name}")
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        budget = mpmd.stage_hbm_budget(
+            cfg, CERT_STAGES, i, devices_per_stage=1, batch_per_chip=1,
+            seq=CERT_TOKENS[1], n_microbatches=1, chunk_v=CERT_CHUNK,
+            hbm_gib_per_chip=card_gib)
+        row = {"stage": i, "kind": kind, "layers": n_layers[i],
+               "params": mpmd.stage_param_count(cfg, CERT_STAGES, i),
+               "peak_gib": peak,
+               "budget_gib": budget["worst_case_gib_per_chip"],
+               "peak_over_budget": peak / budget["worst_case_gib_per_chip"],
+               "step_ms": step_ms,
+               "ms": (sum(step_ms[1:]) / (steps - 1) if steps > 1
+                      else step_ms[0]),
+               "moments": [str(opt.mu[0].dtype), str(opt.nu[0].dtype)]}
+        if kind != "last":
+            row["same_bits_as_chained_forward"] = same_bits
+            row["output_gap"] = gap
+        log(f"phase 26 (b)-(d) stage {i} ({kind}): {json.dumps(row)}")
+        if not peak <= budget["worst_case_gib_per_chip"]:               # (c)
+            raise AssertionError(
+                f"phase 26 (c) stage {i}: peak {peak} GiB over "
+                f"stage_hbm_budget's worst case "
+                f"{budget['worst_case_gib_per_chip']} GiB")
+        rows.append(row)
+        if kind == "last" and abs(losses[0] - ref) > CERT_LOSS_RTOL * ref:
+            raise AssertionError(f"phase 26 (b): the last stage's loss "
+                                 f"{losses[0]}, the unsplit {ref}")
+        del p, opt, out, first, second
+        gc.collect()
+        torch.cuda.empty_cache()
+    # ---- end of phase 26's main path
+    if not all(b < a for a, b in zip(losses, losses[1:])):          # (d)
+        raise AssertionError(f"phase 26 (d): the last stage's losses "
+                             f"{losses} do not fall")
+    del acts, g_next
+    log(f"phase 26 (b): the last stage's loss {losses[0]} against the "
+        f"unsplit {ref} (rel {abs(losses[0] - ref) / ref}); its losses "
+        f"over {len(losses)} steps {losses}")
+    # (f): the two 8B certificate lines for this card come from phase 12
+    # (d)'s dryrun, whose tracing runs beside that phase's ranks
+    torch.cuda.empty_cache()
+    k2 = k2_8b_row(attention)                                        # (g)
+    out = {"counts": counts, "stages": rows[::-1], "ref_loss": ref,
+           "losses": losses, "k2": k2,
+           "launches": sum(c["launches"] for c in counts.values()),
+           "bwd_launches": sum(c["bwd_launches"] for c in counts.values()),
+           "step_launches": sum(c["launches"] for k, c in counts.items()
+                                if k.startswith("stage_")),
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 26 done in {out['phase_s']} s: peaks "
+        f"{[r['peak_gib'] for r in out['stages']]} GiB against budgets "
+        f"{[r['budget_gib'] for r in out['stages']]} ({card}, "
+        f"{card_gib} GiB); ms a stage step {[r['ms'] for r in out['stages']]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6754,7 +7023,15 @@ def main() -> int:
         models, attention, params, cfg, requests, outs)
     where_time_goes(models, params, cfg, server, tokens, paged_server)
     serve_launches = launches
-    del params, server, logits, outs, paged_server
+    del server, logits, outs, paged_server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 26: the 8B's four pp stages trained on phase 1's weights, the
+    # servers freed first, then the weights.
+    cert = certificate_phase(models, attention, params, cfg)
+    log(f"phase 26 done at {time.perf_counter() - t_start} s")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     log(f"serving phases done at {time.perf_counter() - t_start} s; "
@@ -6931,7 +7208,7 @@ def main() -> int:
                     + ingest["bwd_launches"] + mpmd_run["bwd_launches"]
                     + sum(v["bwd_launches"] for v in tuned.values())
                     + job_run["bwd_launches"]
-                    + sum(rl_bwd.values())
+                    + sum(rl_bwd.values()) + cert["bwd_launches"]
                     + sharded_launches("bwd_launches")[1])
     mosaic = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [{
@@ -6948,7 +7225,8 @@ def main() -> int:
         + ingest["launches"] + serving["launches"] + mpmd_run["launches"]
         + sum(v["launches"] for v in tuned.values())
         + job_run["launches"] + pool_run["launches"]
-        + sum(rl_fwd.values()) + sharded_launches("launches")[1],
+        + sum(rl_fwd.values()) + cert["launches"]
+        + sharded_launches("launches")[1],
         "launches_by_path": {"serve": serve_launches, **slice_launches,
                              "train_dense": dense["launches"],
                              "train_remat_chunked": remat["launches"],
@@ -6971,6 +7249,8 @@ def main() -> int:
                              "phase22_job_actor": job_run["launches"],
                              "phase23_pool_actors": pool_run["launches"],
                              **rl_fwd,
+                             **{f"phase26_8b_{k}": c["launches"]
+                                for k, c in cert["counts"].items()},
                              **sharded_launches("launches")[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -6996,6 +7276,10 @@ def main() -> int:
             "library_ms": r["fwd_library_ms"],
             "max_abs_err": r["fwd_max_abs_err"]}
             for k, r in rl_run["rows"].items()},
+        "cert_8b_shape": {cert["k2"]["shape"] + ", with lse": {
+            f: cert["k2"][f"fwd_{f}"] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")}},
     }]
     for name, part in (("dkdv", "dK, dV"), ("dq", "dQ")):
         kernels.append({
@@ -7031,6 +7315,9 @@ def main() -> int:
                                  "phase22_job_actor":
                                      job_run["bwd_launches"],
                                  **rl_bwd,
+                                 **{f"phase26_8b_{k}": c["bwd_launches"]
+                                    for k, c in cert["counts"].items()
+                                    if c["bwd_launches"]},
                                  **sharded_launches("bwd_launches")[0]},
             "max_abs_err": max(r[g]["max_abs_err"] for r in bwd_rows
                                for g in (("dk", "dv") if name == "dkdv"
@@ -7063,6 +7350,11 @@ def main() -> int:
                 "bound_by": rl_run["rows"]["learner"]["bwd_bound_by"],
                 "library_ms": rl_run["rows"]["learner"]["bwd_library_ms"],
                 "max_abs_err": rl_run["rows"]["learner"]["bwd_max_abs_err"],
+                "computes": "dQ, dK and dV (both kernels)"}},
+            "cert_8b_shape": {cert["k2"]["shape"]: {
+                **{f: cert["k2"][f"bwd_{f}"] for f in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")},
                 "computes": "dQ, dK and dV (both kernels)"}},
         })
     full = stats_rows[0]  # every key visible, at the ring shard shape

@@ -117,7 +117,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     skipping, any L (the last blocks are short), output divided by
     max(l, 1e-30) and cast to q's dtype. The blocks default to the bf16
     kernel's tiles. With ``return_lse`` it also returns each row's
-    log-sum-exp of the scaled scores, fp32 [B, H, Lq], as ``(o, lse)``."""
+    log-sum-exp of the scaled scores, fp32 [B, H, Lq], as ``(o, lse)``.
+    On ``meta`` tensors only the outputs' shapes and dtypes are made (a
+    step traced at full geometry, ``parallel.mpmd_pipeline
+    .lower_stage_step``), without the blocks' loop."""
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     block_q = block_q or _TC_BLOCK_Q
@@ -125,6 +128,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     if causal and Lq != Lk:
         raise ValueError(f"causal flash attention needs Lq == Lk, got "
                          f"{Lq} and {Lk}")
+    if q.device.type == "meta":
+        o = torch.empty_like(q)
+        lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
+        return (o, lse) if return_lse else o
     if scale is None:
         scale = D ** -0.5
     group = H // k.shape[2]
@@ -175,12 +182,15 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     skipping, any L), then dV += P^T dO, dS = P (dO V^T - di) with
     di = rowsum(o * dO), dK += scale dS^T Q and dQ += scale dS K. dK and dV
     of a kv head sum over its group of query heads. Returns
-    ``(dq, dk, dv)`` in the dtypes of q, k and v."""
+    ``(dq, dk, dv)`` in the dtypes of q, k and v; on ``meta`` tensors only
+    their shapes and dtypes, as ``flash_attention_plain`` does."""
     B, Lq, H, D = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     if causal and Lq != Lk:
         raise ValueError(f"causal flash attention needs Lq == Lk, got "
                          f"{Lq} and {Lk}")
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if scale is None:
         scale = D ** -0.5
     group = H // Hkv

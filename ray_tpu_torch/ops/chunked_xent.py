@@ -105,8 +105,10 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
             width = min(chunk, V - c0)
             local = clipped - c0
             in_chunk = (local >= 0) & (local < width)
-            rows = torch.nonzero(in_chunk)[:, 0]
-            p[rows, local[rows]] -= 1.0
+            # each row's target column less 1 (the others less 0.0): no
+            # host read of which rows hold one, and no data-dependent shape
+            p.scatter_add_(1, local.clamp(0, chunk - 1)[:, None],
+                           -in_chunk.to(p.dtype)[:, None])
             p *= scale[:, None]                            # d_logits
             dh += p @ w.T
             dhead[:, c0:c0 + width] = (h32.T @ p)[:, :width]

@@ -44,14 +44,18 @@ each hop emits ``pipe.stage.fwd`` / ``pipe.stage.bwd`` /
 schedule at a microbatch boundary (:class:`PipelineDrainSignal`).
 
 The stage math (the split, each stage's forward and loss, its parameter
-count and memory budget, ``build_stage_step``) needs no runtime. The
-reference's ``lower_stage_step`` and ``stage_abstract_params`` (XLA
-lowering for its 8B certificate) wait with that certificate. The
-single-program pipeline over the ``pp`` axis is ``parallel.pipeline``.
+count and memory budget, ``build_stage_step`` with its optax-ordered
+:class:`AdamW`) needs no runtime, and neither does the 8B certificate's
+machinery: ``stage_abstract_params`` (a stage's tree on ``meta``
+tensors) and ``lower_stage_step`` (a stage's step traced at the full
+geometry, with each rank's bytes on its FSDP submesh), which the dryrun's
+8B reports read. The single-program pipeline over the ``pp`` axis is
+``parallel.pipeline``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
@@ -554,6 +558,9 @@ class PipelineStageActor:
 
     def get_params(self):
         return _tree_map(_host_tensor, self.params)
+
+    def pid(self) -> int:
+        return os.getpid()
 
     def probe(self, reset: bool = False) -> dict:
         """What this stage's process holds and did: its pid, device and
@@ -1071,15 +1078,23 @@ class MPMDPipeline:
                 pass
 
 
+def _stage_layers(n_layers: int, n_stages: int, stage_idx: int) -> int:
+    """Stage ``stage_idx``'s layer count; one stage holds them all."""
+    if n_stages == 1 and stage_idx == 0:
+        return n_layers
+    return stage_layer_counts(n_layers, n_stages)[stage_idx]
+
+
 def stage_param_count(cfg, n_stages: int, stage_idx: int) -> int:
     """The parameter count of stage ``stage_idx`` of
     :func:`split_llama_params`' split (the embedding on stage 0, the norm
-    and ``lm_head`` on the last)."""
+    and ``lm_head`` on the last). ``n_stages=1`` is the whole model as one
+    program."""
     d, f = cfg.d_model, cfg.d_ff
     kvdim = cfg.n_kv_heads * cfg.head_dim
     per_layer = (d * cfg.n_heads * cfg.head_dim + 2 * d * kvdim
                  + cfg.n_heads * cfg.head_dim * d + 3 * d * f + 2 * d)
-    n = stage_layer_counts(cfg.n_layers, n_stages)[stage_idx] * per_layer
+    n = _stage_layers(cfg.n_layers, n_stages, stage_idx) * per_layer
     if stage_idx == 0:
         n += cfg.vocab_size * d
     if stage_idx == n_stages - 1:
@@ -1101,12 +1116,14 @@ def stage_hbm_budget(cfg, n_stages: int, stage_idx: int, *,
     buffers, two gathered layers, and on the first and last stages the
     embedding rows and the chunked loss. ``live_mb_bound`` (``min(p, m)``
     under 1F1B) gives the worst case. ``hbm_gib_per_chip`` is the device's
-    memory, which the caller states."""
+    memory, which the caller states. ``n_stages=1`` budgets the whole model
+    as one FSDP program: the first and the last stage at once, with no
+    boundary to send over."""
     d, f = cfg.d_model, cfg.d_ff
     kvdim = cfg.n_kv_heads * cfg.head_dim
     D = devices_per_stage
     bl = batch_per_chip * seq
-    n_layers_stage = stage_layer_counts(cfg.n_layers, n_stages)[stage_idx]
+    n_layers_stage = _stage_layers(cfg.n_layers, n_stages, stage_idx)
     per_layer_params = (d * cfg.n_heads * cfg.head_dim + 2 * d * kvdim
                         + cfg.n_heads * cfg.head_dim * d + 3 * d * f
                         + 2 * d)
@@ -1129,6 +1146,8 @@ def stage_hbm_budget(cfg, n_stages: int, stage_idx: int, *,
         "boundary_send_recv_bf16": 2 * bl * d * 2,
         "allgather_layers_bf16_x2": 2 * per_layer_params * 2,
     }
+    if n_stages == 1:
+        del rows["boundary_send_recv_bf16"]
     if first:
         rows["embed_rows_bf16"] = bl * d * 2
     if last:
@@ -1158,6 +1177,73 @@ def stage_hbm_budget(cfg, n_stages: int, stage_idx: int, *,
     }
 
 
+#: Elements an :class:`AdamW` update takes at a time: its fp32 temporaries
+#: stay near 256 MiB however large the leaf (an 8B stage's embedding has
+#: 525 M elements).
+ADAM_SLICE = 1 << 26
+
+
+class AdamW:
+    """The reference's ``optax.adamw(lr, weight_decay=0.1,
+    mu_dtype=float32)`` over a list of leaves, each updated in place with
+    its ``.grad``, in optax's order and dtypes:
+
+      mu <- (1 - b1) g + b1 mu     held in fp32
+      nu <- (1 - b2) g^2 + b2 nu   held in the leaf's dtype
+      u  <- mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps) + wd p
+      p  <- p - lr u, rounded once to p's dtype
+
+    at optax's b1, b2 and eps, with one int32 step count t for the tree
+    (optax's ``count``) and the bias corrections in fp32, cast to each
+    moment's dtype. A Python scalar takes the dtype of the tensor it
+    scales, as JAX's weakly typed scalars do. The moments are allocated
+    here, as ``opt.init`` does. The update is elementwise, so it walks
+    each leaf in slices of ``ADAM_SLICE`` elements and its temporaries
+    stay small beside an 8B stage's state."""
+
+    b1, b2, eps, weight_decay = 0.9, 0.999, 1e-8, 0.1
+
+    def __init__(self, leaves: List[torch.Tensor], lr: float):
+        self.leaves = list(leaves)
+        self.lr = lr
+        device = self.leaves[0].device if self.leaves else None
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.mu = [torch.zeros_like(p, dtype=torch.float32)
+                   for p in self.leaves]
+        self.nu = [torch.zeros_like(p) for p in self.leaves]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.count += 1
+        bc1 = 1 - torch.pow(self.b1, self.count)    # fp32, as optax's
+        bc2 = 1 - torch.pow(self.b2, self.count)
+        consts: Dict[Any, torch.Tensor] = {}
+
+        def c(x, like):
+            key = (x, like.dtype)
+            if key not in consts:
+                consts[key] = torch.tensor(x, dtype=like.dtype,
+                                           device=like.device)
+            return consts[key]
+
+        for p, mu, nu in zip(self.leaves, self.mu, self.nu):
+            # a leaf the loss left out steps on a zero gradient, as in optax
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            flat = [t.view(-1) for t in (p, g, mu, nu)]
+            for a in range(0, p.numel(), ADAM_SLICE):
+                ps, gs, m, v = (t[a:a + ADAM_SLICE] for t in flat)
+                m.copy_(c(1 - self.b1, gs) * gs + c(self.b1, m) * m)
+                v.copy_(c(1 - self.b2, gs) * gs.square() + c(self.b2, v) * v)
+                u = (m / bc1.to(m.dtype)) / (
+                    (v / bc2.to(v.dtype)).sqrt() + c(self.eps, v))
+                u = u + c(self.weight_decay, ps) * ps
+                ps.copy_(ps + c(-self.lr, u) * u)
+
+    def zero_grad(self) -> None:
+        for p in self.leaves:
+            p.grad = None
+
+
 def build_stage_step(cfg, stage_idx: int, n_stages: int, *,
                      lr: float = 3e-4, chunked_vocab: int = 0):
     """One pp-stage's per-microbatch compute as one plain step: the
@@ -1167,10 +1253,9 @@ def build_stage_step(cfg, stage_idx: int, n_stages: int, *,
     holds the same resident state as one unit).
 
     Returns ``(make_opt, step_fn, kind)``. ``make_opt(params)`` builds the
-    stage's ``torch.optim.AdamW`` (the reference's ``optax.adamw(lr,
-    weight_decay=0.1)``; its moments take the params' dtype, where the
-    reference keeps the first in fp32). ``kind`` names the step's
-    signature:
+    stage's :class:`AdamW`, the reference's ``optax.adamw(lr,
+    weight_decay=0.1, mu_dtype=float32)``: the first moment in fp32, the
+    second in the parameters' dtype. ``kind`` names the step's signature:
 
       * ``"first"``: ``step_fn(params, opt, tokens[B,L], g_out[B,L,D])``
         → ``out``
@@ -1185,13 +1270,11 @@ def build_stage_step(cfg, stage_idx: int, n_stages: int, *,
     from ..models.convert import trainable
 
     def make_opt(params):
-        return torch.optim.AdamW(trainable(params), lr=lr,
-                                 betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=0.1)
+        return AdamW(trainable(params), lr)
 
     def update(opt):
         opt.step()
-        opt.zero_grad(set_to_none=True)
+        opt.zero_grad()
 
     if stage_idx == n_stages - 1:
         def step_fn(params, opt, act, targets):
@@ -1218,3 +1301,108 @@ def build_stage_step(cfg, stage_idx: int, n_stages: int, *,
         update(opt)
         return out.detach(), act.grad
     return make_opt, step_fn, "mid"
+
+
+# --------------------------------------------------------------------------
+# The 8B certificate's machinery (the reference's pp x fsdp lowering): each
+# stage of a multi-host pipeline is its own FSDP program over its own ranks
+# (``sharding.stage_submesh``). Eager PyTorch has no ahead-of-time compile:
+# a stage's step is run once on ``meta`` tensors at the full geometry,
+# which checks that its forward, backward and optimizer state hold
+# together, and each rank's bytes follow from the specs ``LLAMA_RULES``
+# give on the stage's mesh.
+
+
+def stage_abstract_params(cfg, n_stages: int) -> List[Dict[str, Any]]:
+    """Per-stage parameter trees of the full geometry on ``meta`` tensors
+    (shapes and dtypes, nothing allocated): ``split_llama_params`` of
+    ``init_params``' tree, the reference's ``jax.eval_shape`` tree."""
+    full = llama.init_params(cfg, None, device="meta")
+    return split_llama_params(full, n_stages)
+
+
+@dataclasses.dataclass(frozen=True)
+class StageStepLowering:
+    """What :func:`lower_stage_step` traced: the stage's kind, its step's
+    outputs (``meta`` tensors) and one rank's bytes, under the names of
+    the reference's ``Lowered.compile().memory_analysis()``: the arguments
+    (parameter shards, the fp32 first moment, the second moment, the step
+    count, the step's inputs) and the outputs (the same state after the
+    update and the step's results). ``by_class`` breaks both down."""
+
+    kind: str
+    outputs: tuple
+    argument_size_in_bytes: int
+    output_size_in_bytes: int
+    by_class: Dict[str, int]
+
+
+def _rank_bytes(t: torch.Tensor, spec, mesh) -> int:
+    """The bytes of one rank's block of ``t`` split by ``spec`` over
+    ``mesh`` (a dim that does not divide takes the larger block)."""
+    from .sharding import _axes
+
+    n = t.element_size()
+    for i, dim in enumerate(t.shape):
+        entry = spec[i] if i < len(spec) else None
+        ways = math.prod(mesh.shape[a] for a in _axes(entry))
+        n *= -(-dim // ways)
+    return n
+
+
+def lower_stage_step(cfg, stage_idx: int, n_stages: int, mesh, *,
+                     batch: int, seq: int, lr: float = 3e-4,
+                     chunked_vocab: int = 0) -> StageStepLowering:
+    """Stage ``stage_idx``'s step (``build_stage_step``) at the full
+    geometry against its FSDP submesh ``mesh`` (``stage_submesh``), the
+    reference's ahead-of-time lowering. The step runs once on ``meta``
+    tensors: the stage's parameters (:func:`stage_abstract_params`), its
+    AdamW state, and a global batch of ``batch`` rows of ``seq`` tokens.
+    Each rank's bytes follow from the specs: the parameters by
+    ``LLAMA_RULES`` (``shardings_for_tree``), each moment as its
+    parameter, the count whole, the activations, cotangents and tokens
+    split over the batch (``activation_sharding``), the loss whole."""
+    from .sharding import activation_sharding, shardings_for_tree, tree_paths
+
+    make_opt, step_fn, kind = build_stage_step(
+        cfg, stage_idx, n_stages, lr=lr, chunked_vocab=chunked_vocab)
+    params = stage_abstract_params(cfg, n_stages)[stage_idx]
+    specs = [spec for _, spec in tree_paths(shardings_for_tree(params,
+                                                               mesh))]
+    opt = make_opt(params)
+    meta = torch.device("meta")
+    act = torch.empty(batch, seq, cfg.d_model, dtype=cfg.dtype, device=meta)
+    ints = torch.empty(batch, seq, dtype=torch.int32, device=meta)
+    inputs = {"first": (ints, act), "mid": (act, act),
+              "last": (act, ints)}[kind]
+    act_spec = activation_sharding(mesh)
+
+    def state_bytes() -> Dict[str, int]:
+        return {
+            "params": sum(_rank_bytes(p, s, mesh)
+                          for p, s in zip(opt.leaves, specs)),
+            "adam_mu": sum(_rank_bytes(m, s, mesh)
+                           for m, s in zip(opt.mu, specs)),
+            "adam_nu": sum(_rank_bytes(v, s, mesh)
+                           for v, s in zip(opt.nu, specs)),
+            "count": _rank_bytes(opt.count, (), mesh),
+        }
+
+    def io_bytes(ts) -> int:
+        return sum(_rank_bytes(t, act_spec[:t.dim()], mesh) for t in ts)
+
+    before = state_bytes()
+    out = step_fn(params, opt, *inputs)
+    out = out if isinstance(out, tuple) else (out,)
+    after = state_bytes()
+    by_class = {**{f"in_{k}": v for k, v in before.items()},
+                "in_inputs": io_bytes(inputs),
+                **{f"out_{k}": v for k, v in after.items()},
+                "out_results": io_bytes(out)}
+    return StageStepLowering(
+        kind, out,
+        argument_size_in_bytes=sum(v for k, v in by_class.items()
+                                   if k.startswith("in_")),
+        output_size_in_bytes=sum(v for k, v in by_class.items()
+                                 if k.startswith("out_")),
+        by_class=by_class)

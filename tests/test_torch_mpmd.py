@@ -247,7 +247,7 @@ def test_build_stage_step_matches_jax(stage_idx):
     for k, w in want.items():
         np.testing.assert_allclose(got[k][big[k]], w[big[k]], **VALUE_TOL,
                                    err_msg=k)
-        assert all(t.grad is None for t in opt.param_groups[0]["params"])
+        assert all(t.grad is None for t in opt.leaves)
     assert optax  # the reference's optimizer is optax.adamw
 
 
@@ -652,6 +652,8 @@ def test_member_lost_detected_by_gang_push(port_cluster, tmp_path):
         ckpt = pipe.save_checkpoint()
         pid = ray_tpu_torch.get(pipe.stages[1].probe.remote(),
                                 timeout=30)["pid"]
+        assert ray_tpu_torch.get(pipe.stages[1].pid.remote(),
+                                 timeout=30) == pid
         threading.Timer(0.25, lambda: os.kill(pid, signal.SIGKILL)).start()
         t0 = time.monotonic()
         with pytest.raises(tmpmd.PipelineMemberLost) as ei:
@@ -719,7 +721,9 @@ def test_dryrun_mpmd_part_matches_jax(port_cluster):
     assert abs(out["ref_loss"] - want) < PIPE_TOL
     assert abs(out["loss"] - want) < 1e-4
     assert out["sim_bubble_fraction"] < 0.4
-    assert "_dryrun_mpmd_pipeline" not in dryrun.NOT_RUN
+    # every part of the reference's dryrun runs: nothing is listed as not
+    # run any more
+    assert not hasattr(dryrun, "NOT_RUN")
 
 
 def test_drain_mid_1f1b_checkpoints_at_a_boundary_and_reshapes(
